@@ -1,0 +1,150 @@
+"""Build the CUDA kernels of ``csrc/`` with ``nvcc`` and load them.
+
+All ``csrc/*.cu`` files compile into one shared library with a plain C
+interface, loaded with :mod:`ctypes` (no PyTorch headers, so the build
+takes seconds).  The library lands in ``kpop_tpu_torch/_build/`` under a
+name keyed by a hash of the sources and flags, and is built on first use.
+A failed build raises with ``nvcc``'s output; nothing falls back.
+
+Every C entry point takes its tensors as raw device pointers plus PyTorch's
+current stream, enqueues its kernel, and returns ``cudaGetLastError()``.
+:func:`launch` raises on a non-zero code and counts the launch in
+:data:`LAUNCHES`, so a run can show which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_DIR = Path(__file__).resolve().parent
+_CSRC = _DIR / "csrc"
+_OUT = _DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types, the stream last (csrc/*.cu)
+_SIGNATURES = {
+    # a, b, metric, na, nb, out, Q, T, D, stream
+    "kpop_pairwise_dist": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # codes, B, L, k, canonical, base, lut, V, out, stream
+    "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P),
+    # codes, B, L, k, canonical, base, lut, V, twister, d, normalize, out,
+    # stream
+    "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P),
+}
+
+#: launches of each kernel since the last reset (set the values to 0)
+LAUNCHES: dict[str, int] = dict.fromkeys(_SIGNATURES, 0)
+#: seconds the last build took (0.0 when the library was already built)
+BUILD_SECONDS = 0.0
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the kernels of "
+            "kpop_tpu_torch/csrc need the CUDA toolkit"
+        )
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _OUT / f"libkpop_torch_{h.hexdigest()[:16]}.so"
+
+
+def _build(target: Path) -> None:
+    global BUILD_SECONDS
+    _OUT.mkdir(parents=True, exist_ok=True)
+    # build under a temporary name, then rename: a second process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(dir=_OUT, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (exit %d): %s\n%s%s"
+                % (res.returncode, " ".join(cmd), res.stdout, res.stderr)
+            )
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    BUILD_SECONDS = time.perf_counter() - t0
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            target = library_path()
+            if not target.exists():
+                _build(target)
+            loaded = ctypes.CDLL(str(target))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(loaded, name)
+                fn.argtypes = argtypes
+                fn.restype = _I
+            loaded.kpop_error_string.argtypes = (_I,)
+            loaded.kpop_error_string.restype = ctypes.c_char_p
+            _lib = loaded
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Enqueue kernel ``name`` on the current stream; raise on a CUDA error."""
+    library = lib()
+    err = getattr(library, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {err} "
+            f"({library.kpop_error_string(err).decode()})"
+        )
+    LAUNCHES[name] += 1
+
+
+def check_cuda(name: str, *tensors: torch.Tensor, dtypes) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of its dtype,
+    all on one device."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
