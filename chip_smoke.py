@@ -9,7 +9,9 @@ prints no result.  It imports no JAX.  Phases, each fatal on failure:
 2. build: ``nvcc`` builds ``kpop_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``kpop_tpu_torch/_build/`` (on first use);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, with the median time of both;
+   the serving path's shapes, with the median time of both; the distance
+   tile also at the relatedness block (4096 x 4096 x 512) and on raw
+   spectra (512 x 512 x 367,987), each against float64 on the card too;
 4. slice: the headline serving workload of ``bench.py`` (k=10, 512 classes
    x 4 tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp
    pairs at 1x coverage; vocabulary ~368k, d=511), trained with the host
@@ -46,6 +48,7 @@ HOST_CHAIN_ATOL = 1e-4
 COUNT_TOL = "exact (torch.equal)"
 BAG_RTOL, BAG_ATOL = 1e-5, 1e-6
 PAIR_RTOL, PAIR_ATOL = 2e-4, 1e-5  # tests/test_pallas.py:32
+F64_ERR_RATIO = 4.0  # distance tile's error to float64 against the plain version's
 
 
 def log(msg: str) -> None:
@@ -123,6 +126,72 @@ def read_like_codes(rng, B: int, L: int) -> np.ndarray:
     return codes
 
 
+def distances_f64(a, b, m, na, nb):
+    """The distance tile in float64 on the card, from the same f32 inputs."""
+    import torch
+
+    a, b, m, na, nb = (x.double() for x in (a, b, m, na, nb))
+    a = a / na[:, None]
+    b = b / nb[:, None]
+    am = a * m[None, :]
+    d2 = (am * a).sum(dim=1)[:, None] + (b * b * m[None, :]).sum(dim=1)[None, :] - 2.0 * am @ b.T
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def tile_row(args, shape: str, strict: bool) -> dict:
+    """The distance tile against its plain version and float64 on the card:
+    its max abs error to float64 at most F64_ERR_RATIO times the plain
+    version's, and with ``strict`` allclose to the plain version."""
+    import torch
+
+    from kpop_tpu_torch.ops import pairwise as pw
+
+    got = pw.distance_tile(*args)
+    want = pw.distance_tile_ref(*args)
+    exact = distances_f64(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    err_f64 = float((got.double() - exact).abs().max())
+    plain_err_f64 = float((want.double() - exact).abs().max())
+    if strict and not torch.allclose(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL):
+        raise AssertionError(
+            "distance tile differs from its plain version at %s: max abs %.3g" % (shape, err)
+        )
+    if not np.isfinite(err_f64) or err_f64 > F64_ERR_RATIO * plain_err_f64:
+        raise AssertionError(
+            "distance tile at %s: max abs error to float64 %.3g, plain version %.3g"
+            % (shape, err_f64, plain_err_f64)
+        )
+    tol = f"err to float64 <= {F64_ERR_RATIO:g}x the plain version's"
+    if strict:
+        tol = f"rtol {PAIR_RTOL}, atol {PAIR_ATOL}; " + tol
+    del got, want, exact
+    return dict(
+        err=err, err_f64=err_f64, plain_err_f64=plain_err_f64,
+        ms=time_ms(lambda: pw.distance_tile(*args)),
+        plain_ms=time_ms(lambda: pw.distance_tile_ref(*args)),
+        shape=shape, tol=tol,
+        source="kpop_tpu_torch/csrc/pairwise.cu",
+        replaces="kpop_tpu/ops/pallas_pairwise.py:43",
+        launch="kpop_pairwise_dist",
+    )
+
+
+def raw_spectra(dev, C: int, V: int):
+    """[C, V] f32 k-mer counts of related classes, made on the card from a
+    seeded generator: a shared root presence at 16 % of the vocabulary
+    (about 60k k-mers, two 30 kb tips per class), each class flipping 1 %
+    of it, and counts of 1 or 2."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    root = torch.rand(V, device=dev, generator=gen) < 0.16
+    present = root[None, :] ^ (torch.rand(C, V, device=dev, generator=gen) < 0.01)
+    twice = torch.rand(C, V, device=dev, generator=gen) < 0.1
+    return present.float() * (1.0 + twice.float())
+
+
 def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     import torch
 
@@ -174,57 +243,38 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         launch="kpop_embedding_bag",
     )
 
-    # the slice's shape: [B, d] twisted reads against [C, d] classes, with
-    # the class norms of the parameters, as distances_to_classes calls it
+    # the distance tile at three shapes.  The slice's: [B, d] twisted reads
+    # against [C, d] classes, with the class norms of the parameters, as
+    # distances_to_classes calls it
     twisted = got
     m = params.metric
     args = (twisted, params.class_coords, m, pw.row_norms(twisted, m), params.class_norms)
-    got = pw.distance_tile(*args)
-    want = pw.distance_tile_ref(*args)
-    torch.cuda.synchronize()
-    if not torch.allclose(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL):
-        raise AssertionError(
-            "distance tile differs from its plain version: max abs %.3g"
-            % float((got - want).abs().max())
-        )
-    rows["pairwise_dist"] = dict(
-        err=float((got - want).abs().max()),
-        ms=time_ms(lambda: pw.distance_tile(*args)),
-        plain_ms=time_ms(lambda: pw.distance_tile_ref(*args)),
-        shape=f"[{B}, {d}] x [{C}, {d}]",
-        tol=f"rtol {PAIR_RTOL}, atol {PAIR_ATOL}",
-        source="kpop_tpu_torch/csrc/pairwise.cu",
-        replaces="kpop_tpu/ops/pallas_pairwise.py:43",
-        launch="kpop_pairwise_dist",
-    )
-    # the relatedness shape the Pallas kernel was tuned at
+    rows["pairwise_dist"] = tile_row(args, f"[{B}, {d}] x [{C}, {d}]", strict=True)
+    del got, want, args
+    # the relatedness block the Pallas kernel was tuned at
     a = torch.as_tensor(rng.standard_normal((big, 512), dtype=np.float32), device=dev)
     b = torch.as_tensor(rng.standard_normal((big, 512), dtype=np.float32), device=dev)
     mb = torch.as_tensor(rng.random(512, dtype=np.float32), device=dev)
-    got = pw.pairwise_distances(a, b, mb)
-    want = pw.pairwise_distances_ref(a, b, mb)
-    torch.cuda.synchronize()
-    if not torch.allclose(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL):
-        raise AssertionError(
-            "pairwise distances differ from the plain version at %d^2 x 512: "
-            "max abs %.3g" % (big, float((got - want).abs().max()))
-        )
-    rows["pairwise_dist"]["big"] = dict(
-        shape=f"[{big}, 512] x [{big}, 512]",
-        err=float((got - want).abs().max()),
-        ms=time_ms(lambda: pw.pairwise_distances(a, b, mb)),
-        plain_ms=time_ms(lambda: pw.pairwise_distances_ref(a, b, mb)),
+    args = (a, b, mb, pw.row_norms(a, mb), pw.row_norms(b, mb))
+    rows["pairwise_dist_relatedness"] = tile_row(
+        args, f"[{big}, 512] x [{big}, 512]", strict=True
     )
+    del a, b, mb, args
+    # C raw class spectra against themselves, as kpop-countdb --distances
+    # --backend pallas computes them (metric 1, rows normalized)
+    a = raw_spectra(dev, C, V)
+    ones = torch.ones(V, dtype=torch.float32, device=dev)
+    na = pw.row_norms(a, ones)
+    rows["pairwise_dist_raw_spectra"] = tile_row(
+        (a, a, ones, na, na), f"[{C}, {V}] x [{C}, {V}] counts", strict=False
+    )
+    del a, ones, na
+    torch.cuda.empty_cache()
     for name, r in rows.items():
         log(
-            "kernel %-14s %s: max abs err %.3g (%s); kernel %.4f ms, plain "
+            "kernel %-26s %s: max abs err %.3g (%s); kernel %.4f ms, plain "
             "%.4f ms" % (name, r["shape"], r["err"], r["tol"], r["ms"], r["plain_ms"])
         )
-    big_row = rows["pairwise_dist"]["big"]
-    log(
-        "kernel pairwise_dist  %s: max abs err %.3g; kernel %.4f ms, plain "
-        "%.4f ms" % (big_row["shape"], big_row["err"], big_row["ms"], big_row["plain_ms"])
-    )
     return rows
 
 
@@ -490,7 +540,8 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=sl["launches"][r["launch"]], max_abs_err=r["err"],
-             ms=r["ms"], plain_ms=r["plain_ms"])
+             ms=r["ms"], plain_ms=r["plain_ms"], shape=r["shape"],
+             **{k: r[k] for k in ("err_f64", "plain_err_f64") if k in r})
         for name, r in rows.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -38,8 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types, the stream last (csrc/*.cu)
 _SIGNATURES = {
-    # a, b, metric, na, nb, out, Q, T, D, stream
-    "kpop_pairwise_dist": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # a, b, metric, na, nb, out, workspace, Q, T, D, feature slices, stream
+    "kpop_pairwise_dist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # codes, B, L, k, canonical, base, lut, V, out, stream
     "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P),
     # codes, B, L, k, canonical, base, lut, V, twister, d, normalize, out,
