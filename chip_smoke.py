@@ -10,16 +10,31 @@ prints no result.  It imports no JAX.  Phases, each fatal on failure:
    ``kpop_tpu_torch/_build/`` (on first use);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving path's shapes, with the median time of both; the distance
-   tile also at the relatedness block (4096 x 4096 x 512) and on raw
-   spectra (512 x 512 x 367,987), each against float64 on the card too;
+   tile also at phase 6's relatedness batch (2048 x 10,000 x 512, and its
+   last batch of 1,696), on raw spectra (512 x 512 x 367,987) and, for
+   timing, at 4096 x 4096 x 512, each against float64 on the card too;
+   the row digest on the relatedness batch's tile (2048 x 10,000, k=16),
+   on ties and signed zeros, on rows of 367,987 and with k = N;
 4. slice: the headline serving workload of ``bench.py`` (k=10, 512 classes
    x 4 tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp
    pairs at 1x coverage; vocabulary ~368k, d=511), trained with the host
    float64 CA and classified through the dense and the bag route:
    top-1 accuracy >= 0.95 on each, every kernel launched, distances within
    1e-4 of the host float64 chain, and the serving rate;
-5. cli: the README quick start through ``bin/kpop-classify-torch``,
-   0 misclassified of 100.
+5. cli: the README quick start through ``bin/kpop-classify-torch`` and
+   ``bin/kpop-twistdb-torch --backend pallas -s``, 0 misclassified of 100
+   on each, the summaries within 2e-4 of ``kpop-twistdb``'s host float64
+   lines, and ``bin/kpop-countdb-torch --backend pallas --distances``
+   against ``kpop-countdb``'s host distances;
+6. relatedness: ``bench.py``'s relatedness flagship (100,000 queries x
+   10,000 targets x 512 dims, seed 2, keep 2, batch 2048) through
+   ``summarize_rowwise_device`` on the tile route (``pallas``) and the
+   matrix-product route (``jax``): the first 2,000 queries' lines within
+   2e-4 of the host float64 lines, tile and digest launched, and the
+   queries/s of both routes and of the host; then phase 4's 512 class
+   spectra (367,987 k-mers) through ``distance_rowwise_device`` on the
+   tile, as ``kpop-countdb --distances --backend pallas`` computes them,
+   against float64 on the card.
 
 The kernel table is printed as one JSON line, then the card's name and
 power limit, and last the result line
@@ -49,6 +64,14 @@ COUNT_TOL = "exact (torch.equal)"
 BAG_RTOL, BAG_ATOL = 1e-5, 1e-6
 PAIR_RTOL, PAIR_ATOL = 2e-4, 1e-5  # tests/test_pallas.py:32
 F64_ERR_RATIO = 4.0  # distance tile's error to float64 against the plain version's
+DIGEST_B, DIGEST_N, DIGEST_K = 2048, 10_000, 16  # the relatedness flagship batch
+DIGEST_RTOL = 1e-5
+# the relatedness flagship of bench.py:349-361: seed 2, queries x targets x
+# dims of standard normals, metric 1/dims, euclidean, keep 2, batch 2048
+REL_Q, REL_T, REL_D, REL_KEEP = 100_000, 10_000, 512, 2
+REL_HOST_Q = 2000  # queries held to the host float64 path (bench.py:382)
+SUMMARY_BOUND = 2e-4  # x max(1, |x|), tests/test_device_summaries.py:55
+SLICE_KERNELS = ("kpop_count_spectra", "kpop_embedding_bag", "kpop_pairwise_dist")
 
 
 def log(msg: str) -> None:
@@ -138,10 +161,11 @@ def distances_f64(a, b, m, na, nb):
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
-def tile_row(args, shape: str, strict: bool) -> dict:
+def tile_check(args, shape: str, strict: bool):
     """The distance tile against its plain version and float64 on the card:
     its max abs error to float64 at most F64_ERR_RATIO times the plain
-    version's, and with ``strict`` allclose to the plain version."""
+    version's, and with ``strict`` allclose to the plain version.  Returns
+    the tile and the three errors."""
     import torch
 
     from kpop_tpu_torch.ops import pairwise as pw
@@ -162,18 +186,28 @@ def tile_row(args, shape: str, strict: bool) -> dict:
             "distance tile at %s: max abs error to float64 %.3g, plain version %.3g"
             % (shape, err_f64, plain_err_f64)
         )
+    return got, dict(err=err, err_f64=err_f64, plain_err_f64=plain_err_f64)
+
+
+def tile_row(args, shape: str, strict: bool, path: str | None) -> dict:
+    """:func:`tile_check` and the median times of the tile and its plain
+    version.  ``path`` names the main path whose launch count the kernel
+    table prints beside this row (None: a timing row kept out of it).  The
+    tile itself is returned under ``out``."""
+    from kpop_tpu_torch.ops import pairwise as pw
+
+    got, errs = tile_check(args, shape, strict)
     tol = f"err to float64 <= {F64_ERR_RATIO:g}x the plain version's"
     if strict:
         tol = f"rtol {PAIR_RTOL}, atol {PAIR_ATOL}; " + tol
-    del got, want, exact
     return dict(
-        err=err, err_f64=err_f64, plain_err_f64=plain_err_f64,
+        errs, out=got,
         ms=time_ms(lambda: pw.distance_tile(*args)),
         plain_ms=time_ms(lambda: pw.distance_tile_ref(*args)),
         shape=shape, tol=tol,
         source="kpop_tpu_torch/csrc/pairwise.cu",
         replaces="kpop_tpu/ops/pallas_pairwise.py:43",
-        launch="kpop_pairwise_dist",
+        launch="kpop_pairwise_dist", path=path,
     )
 
 
@@ -190,6 +224,83 @@ def raw_spectra(dev, C: int, V: int):
     present = root[None, :] ^ (torch.rand(C, V, device=dev, generator=gen) < 0.01)
     twice = torch.rand(C, V, device=dev, generator=gen) < 0.1
     return present.float() * (1.0 + twice.float())
+
+
+def max_rel(got, want) -> float:
+    """Largest |got - want| / |want| (0/0 counts as 0), in float64."""
+    import torch
+
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    return float(torch.where(diff == 0, 0.0, diff / want.abs()).max())
+
+
+def digest_blocks(dev, flagship):
+    """Distance blocks for the row digest, made on the card: the flagship
+    batch (the tile of 2048 queries against 10,000 targets that phase 3
+    checked, k=16), a block of repeated values with zeros of both signs,
+    rows wider than shared memory (raw-spectra width), and k = N
+    (``--summary-keep-at-most all``)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    ties = torch.randint(0, 6, (256, DIGEST_N), generator=gen, device=dev).float()
+    negative = torch.rand(ties.shape, generator=gen, device=dev) < 0.5
+    ties = torch.where((ties == 0) & negative, torch.full_like(ties, -0.0), ties)
+    wide = torch.rand((16, 367_987), generator=gen, device=dev)
+    keep_all = torch.rand((64, 2000), generator=gen, device=dev)
+    return [
+        (f"[{DIGEST_B}, {DIGEST_N}] k={DIGEST_K}", flagship, DIGEST_K),
+        (f"[256, {DIGEST_N}] ties and +-0, k={DIGEST_K}", ties, DIGEST_K),
+        (f"[16, 367987] k={DIGEST_K}", wide, DIGEST_K),
+        ("[64, 2000] k=N", keep_all, 2000),
+    ]
+
+
+def digest_row(dev, flagship) -> dict:
+    """The row digest against its plain version on the card: median, MAD,
+    the k smallest values and their columns equal (both take ties lowest
+    column first); mean and std within DIGEST_RTOL of the plain version and
+    of a float64 digest of the same block.  Timed at the flagship block."""
+    import torch
+
+    from kpop_tpu_torch.ops import summaries as sm
+
+    blocks = digest_blocks(dev, flagship)
+    errs = []
+    for shape, dmat, k in blocks:
+        (stats, top, idx), (rstats, rtop, ridx) = sm.digest_batch(dmat, k), sm.digest_batch_ref(dmat, k)
+        d64 = dmat.double()
+        moments64 = torch.stack([d64.mean(dim=1), d64.std(dim=1)], dim=1)
+        torch.cuda.synchronize()
+        exact = {
+            "median and MAD": torch.equal(stats[:, 2:], rstats[:, 2:]),
+            "top values": torch.equal(top, rtop),
+            "top columns": torch.equal(idx, ridx),
+            "+0.0 zeros": not bool(torch.signbit(top[top == 0]).any()),
+        }
+        rel_plain = max_rel(stats[:, :2], rstats[:, :2])
+        rel_f64 = max_rel(stats[:, :2], moments64)
+        if not all(exact.values()) or max(rel_plain, rel_f64) > DIGEST_RTOL:
+            raise AssertionError(
+                "row digest differs from its plain version at %s: %s, mean/std "
+                "rel %.3g to plain, %.3g to float64" % (shape, exact, rel_plain, rel_f64)
+            )
+        errs.append(float((stats - rstats).abs().max()))
+        log("kernel row_digest at %s: exact %s; mean/std rel %.3g to plain, %.3g to "
+            "float64" % (shape, sorted(exact), rel_plain, rel_f64))
+    shape, dmat, k = blocks[0]
+    return dict(
+        err=max(errs),
+        ms=time_ms(lambda: sm.digest_batch(dmat, k)),
+        plain_ms=time_ms(lambda: sm.digest_batch_ref(dmat, k), reps=5),
+        shape=shape,
+        tol=f"median, MAD, top values and columns torch.equal; mean/std rel {DIGEST_RTOL:g}",
+        source="kpop_tpu_torch/csrc/digest.cu",
+        replaces="kpop_tpu/ops/summaries.py:93",
+        launch="kpop_row_digest", path="relatedness",
+    )
 
 
 def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
@@ -220,7 +331,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         shape=f"[{B}, {L}] int8 codes, k={K}, V={V}", tol=COUNT_TOL,
         source="kpop_tpu_torch/csrc/count_spectra.cu",
         replaces="kpop_tpu/ops/pipeline.py:179",
-        launch="kpop_count_spectra",
+        launch="kpop_count_spectra", path="slice",
     )
     del got, want
 
@@ -240,24 +351,48 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL}",
         source="kpop_tpu_torch/csrc/embedding_bag.cu",
         replaces="kpop_tpu/ops/pipeline.py:200",
-        launch="kpop_embedding_bag",
+        launch="kpop_embedding_bag", path="slice",
     )
 
-    # the distance tile at three shapes.  The slice's: [B, d] twisted reads
+    # the distance tile at four shapes.  The slice's: [B, d] twisted reads
     # against [C, d] classes, with the class norms of the parameters, as
     # distances_to_classes calls it
     twisted = got
     m = params.metric
     args = (twisted, params.class_coords, m, pw.row_norms(twisted, m), params.class_norms)
-    rows["pairwise_dist"] = tile_row(args, f"[{B}, {d}] x [{C}, {d}]", strict=True)
+    rows["pairwise_dist"] = tile_row(
+        args, f"[{B}, {d}] x [{C}, {d}]", strict=True, path="slice"
+    )
     del got, want, args
-    # the relatedness block the Pallas kernel was tuned at
+    # the relatedness engine's: phase 6's batch of normalized queries
+    # against its targets (a ragged target edge), and its last, shorter
+    # batch; the batch's tile feeds the row digest below
+    D = REL_D
+    q = torch.as_tensor(rng.standard_normal((DIGEST_B, D), dtype=np.float32), device=dev)
+    t = torch.as_tensor(rng.standard_normal((REL_T, D), dtype=np.float32), device=dev)
+    mr = torch.full((D,), 1.0 / D, dtype=torch.float32, device=dev)
+    nq, nt = pw.row_norms(q, mr), pw.row_norms(t, mr)
+    rows["pairwise_dist_relatedness"] = tile_row(
+        (q, t, mr, nq, nt), f"[{DIGEST_B}, {D}] x [{REL_T}, {D}]", strict=True,
+        path="relatedness",
+    )
+    tail = REL_Q % DIGEST_B
+    _, tail_errs = tile_check(
+        (q[:tail], t, mr, nq[:tail], nt), f"[{tail}, {D}] x [{REL_T}, {D}]", strict=True
+    )
+    log("kernel pairwise_dist at the last relatedness batch [%d, %d] x [%d, %d]: "
+        "max abs err %.3g to plain, %.3g to float64 (plain %.3g)"
+        % (tail, D, REL_T, D, tail_errs["err"], tail_errs["err_f64"], tail_errs["plain_err_f64"]))
+    flagship = rows["pairwise_dist_relatedness"].pop("out")
+    del q, t, mr, nq, nt
+    # the square block the tile was tuned at: a timing row, off the
+    # kernel table (no main path launches this shape)
     a = torch.as_tensor(rng.standard_normal((big, 512), dtype=np.float32), device=dev)
     b = torch.as_tensor(rng.standard_normal((big, 512), dtype=np.float32), device=dev)
     mb = torch.as_tensor(rng.random(512, dtype=np.float32), device=dev)
     args = (a, b, mb, pw.row_norms(a, mb), pw.row_norms(b, mb))
-    rows["pairwise_dist_relatedness"] = tile_row(
-        args, f"[{big}, 512] x [{big}, 512]", strict=True
+    rows["pairwise_dist_square"] = tile_row(
+        args, f"[{big}, 512] x [{big}, 512]", strict=True, path=None
     )
     del a, b, mb, args
     # C raw class spectra against themselves, as kpop-countdb --distances
@@ -266,9 +401,14 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     ones = torch.ones(V, dtype=torch.float32, device=dev)
     na = pw.row_norms(a, ones)
     rows["pairwise_dist_raw_spectra"] = tile_row(
-        (a, a, ones, na, na), f"[{C}, {V}] x [{C}, {V}] counts", strict=False
+        (a, a, ones, na, na), f"[{C}, {V}] x [{C}, {V}] counts", strict=False,
+        path="countdb_distances",
     )
     del a, ones, na
+    for r in rows.values():
+        r.pop("out", None)
+    rows["row_digest"] = digest_row(dev, flagship)
+    del flagship
     torch.cuda.empty_cache()
     for name, r in rows.items():
         log(
@@ -404,7 +544,6 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     csums = table.sum(axis=0)
     col_w = 1.0 / np.where(csums == 0.0, 1.0, csums)
     ca = fit_ca(table * col_w[None, :])
-    del table
     d = ca.n_dims
     twister = Twister(
         KPopMatrix(MatrixType.TWISTER, NamedMatrix(ca.dim_names, vocab_hex, ca.twister)),
@@ -431,7 +570,7 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     dmats = {path: serve(DeviceStep(params, path), batches) for path in ("dense", "bag")}
     launches = dict(_build.LAUNCHES)
     log("slice: kernel launches on the main path: %s" % json.dumps(launches))
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in SLICE_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError("kernels never launched on the main path: %s" % missing)
 
@@ -467,13 +606,15 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
         "host encode + upload + device step + download), on %s"
         % ([round(r, 1) for r in rates], n_seqs, auto, card))
     return dict(launches=launches, accuracy=accuracy, host_err=host_err,
-                seqs_per_s=rates, vocab=params.n_vocab, d=d)
+                seqs_per_s=rates, vocab=params.n_vocab, d=d, table=table)
 
 
 # ---------------- phase 5: the quick start through the CLI ---------------
 
 
 def phase_cli() -> int:
+    from kpop_tpu.core.matrix import KPopMatrix, MatrixType
+
     env = dict(os.environ)
     env["PATH"] = os.path.join(REPO, "bin") + os.pathsep + env.get("PATH", "")
     env["PYTHONPATH"] = REPO
@@ -490,21 +631,209 @@ def phase_cli() -> int:
         "cat clusters-small.fasta |\n"
         "  awk '{nr=(NR-1)%4; if (nr==2) split($0,s,\"[>-]\"); if (nr==3) print \">\"s[2]\"-\"s[3]\"\\n\"$0}' > test.fasta\n"
         "kpop-classify-torch -T Classes.5 -t Classes.5 -f test.fasta -o Test_prediction.5\n"
+        # the relatedness tools: the test set twisted once, then summarized
+        # against the classes, and the classes' spectral distances, each by
+        # the port's hand kernels and by the JAX tools' float64 host path
+        "kpop-count -k 5 -L -f test.fasta | kpop-twistdb -i T Classes.5 -k /dev/stdin -o t Test.5\n"
+        "kpop-twistdb-torch -i T Classes.5 -i t Classes.5 --backend pallas -s Test.5 Torch.5\n"
+        "kpop-twistdb -i T Classes.5 -i t Classes.5 -s Test.5 Host.5\n"
+        "kpop-countdb-torch -i Classes.5 --backend pallas --distances '~.' '~.' TorchD.5\n"
+        "kpop-countdb -i Classes.5 --distances '~.' '~.' HostD.5\n"
     )
     with tempfile.TemporaryDirectory() as td:
         res = subprocess.run(["bash", "-c", script], cwd=td, env=env,
                              capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise AssertionError("quick start failed:\n" + res.stderr[-4000:])
-        with open(os.path.join(td, "Test_prediction.5.KPopSummary.txt")) as f:
-            lines = f.read().splitlines()
-    if len(lines) != 100:
-        raise AssertionError(f"quick start: {len(lines)} summaries, not 100")
-    wrong = sum(ln.split("\t")[0].split("-")[1] != ln.split("\t")[5] for ln in lines)
-    log("cli: kpop-classify-torch quick start: %d misclassified of %d" % (wrong, len(lines)))
-    if wrong:
-        raise AssertionError(f"quick start: {wrong} misclassified")
+        lines = {}
+        for name in ("Test_prediction.5", "Torch.5", "Host.5"):
+            with open(os.path.join(td, name + ".KPopSummary.txt")) as f:
+                lines[name] = f.read().splitlines()
+        dmats = {
+            name: KPopMatrix.of_binary(MatrixType.DMATRIX, os.path.join(td, name)).matrix
+            for name in ("TorchD.5", "HostD.5")
+        }
+    for name, tool in (("Test_prediction.5", "kpop-classify-torch"),
+                       ("Torch.5", "kpop-twistdb-torch --backend pallas -s")):
+        if len(lines[name]) != 100:
+            raise AssertionError(f"{tool}: {len(lines[name])} summaries, not 100")
+        wrong = sum(ln.split("\t")[0].split("-")[1] != ln.split("\t")[5] for ln in lines[name])
+        log("cli: %s quick start: %d misclassified of %d" % (tool, wrong, len(lines[name])))
+        if wrong:
+            raise AssertionError(f"{tool}: {wrong} misclassified")
+    check_summaries(lines["Torch.5"], lines["Host.5"])
+    log("cli: kpop-twistdb-torch --backend pallas -s within %g of kpop-twistdb's host "
+        "summaries, same targets" % SUMMARY_BOUND)
+    got, want = dmats["TorchD.5"], dmats["HostD.5"]
+    # d^2 bound: the self-distances on the diagonal carry the float32
+    # cancellation of |a|^2 + |b|^2 - 2 a.b (a few 1e-6 in d^2)
+    err2 = float(np.abs(got.data**2 - want.data**2).max())
+    if got.row_names != want.row_names or not np.allclose(
+        got.data**2, want.data**2, rtol=4e-5, atol=4e-6
+    ):
+        raise AssertionError(f"kpop-countdb-torch --distances: max |d^2 - host| {err2:.3g}")
+    log("cli: kpop-countdb-torch --backend pallas --distances %s: max |d^2 - host d^2| %.3g"
+        % (list(got.data.shape), err2))
     return wrong
+
+
+# ---------------- phase 6: the relatedness engine ------------------------
+
+
+def check_summaries(got, want, f64=None, col_index=None) -> tuple[int, int]:
+    """Hold device summary lines to host float64 lines of the same queries:
+    equal names; mean, std, median and MAD, and each listed distance and
+    z-score by position, within SUMMARY_BOUND * max(1, |x|).  With ``f64``
+    every listed target's float64 distance is within the same bound of the
+    listed distance, and a line may list more or fewer targets than the
+    host's where the longer list ends in one tie group (distances that tie
+    in float32 and not in float64, or the reverse).  Without ``f64`` the
+    targets and their number are the host's.  Returns how many lines list
+    their targets in another order (near-ties swap in float32) and how many
+    differ by such a tie group."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} summary lines, host {len(want)}")
+    swapped = ties = 0
+    for j, (g, w) in enumerate(zip(got, want)):
+        pg, pw = g.split("\t"), w.split("\t")
+        n = min(len(pg), len(pw))
+        bad = pg[0] != pw[0] or (len(pg) - 5) % 3 or (len(pw) - 5) % 3
+        for i in range(1, n if not bad else 1):
+            if i >= 5 and (i - 5) % 3 == 0:
+                continue  # a target name
+            a, b = float(pg[i]), float(pw[i])
+            bad |= not abs(a - b) <= SUMMARY_BOUND * max(1.0, abs(b))
+        if len(pg) != len(pw):
+            longer = pg if len(pg) > len(pw) else pw
+            bad |= f64 is None or len(set(longer[n - 2 :: 3])) != 1
+            ties += 1
+        if f64 is not None:
+            for name, d in zip(pg[5::3], pg[6::3]):
+                exact = f64[j, col_index[name]]
+                bad |= not abs(float(d) - exact) <= SUMMARY_BOUND * max(1.0, exact)
+        else:
+            bad |= pg[5::3] != pw[5::3]
+        if bad:
+            raise AssertionError(f"summary line {j}: {g[:300]!r}\nhost: {w[:300]!r}")
+        swapped += pg[5:n:3] != pw[5:n:3]
+    return swapped, ties
+
+
+def countdb_spectra(table: np.ndarray):
+    """The class spectra of a [V, C] count table as ``kpop-countdb
+    --distances`` sees them (``CounterDB.submatrix_normalized``): one row
+    per class, divided by its count sum."""
+    from kpop_tpu.core.matrix import NamedMatrix
+
+    sums = table.sum(axis=0).astype(np.float64)
+    spectra = table.T.astype(np.float64) / np.where(sums == 0.0, 1.0, sums)[:, None]
+    return NamedMatrix(
+        ["c%d" % i for i in range(table.shape[1])],
+        ["k%d" % i for i in range(table.shape[0])],
+        spectra,
+    )
+
+
+def phase_relatedness(dev, card: str, table: np.ndarray) -> dict:
+    """bench.py's relatedness flagship through summarize_rowwise_device on
+    both routes, held to the host float64 path on its first REL_HOST_Q
+    queries, then phase 4's count table through distance_rowwise_device
+    (pallas), held to float64 on the card."""
+    import io
+
+    import torch
+
+    from kpop_tpu.core.matrix import NamedMatrix
+    from kpop_tpu.core.space import Distance, distance_rowwise, summarize_rowwise
+    from kpop_tpu_torch import _build
+    from kpop_tpu_torch.ops import pairwise as pw
+    from kpop_tpu_torch.ops import summaries as sm
+
+    rng = np.random.default_rng(2)
+    dims = ["Dim%d" % (i + 1) for i in range(REL_D)]
+    targets = NamedMatrix(
+        ["t%d" % i for i in range(REL_T)], dims, rng.standard_normal((REL_T, REL_D))
+    )
+    queries = NamedMatrix(
+        ["q%d" % i for i in range(REL_Q)], dims, rng.standard_normal((REL_Q, REL_D))
+    )
+    head = NamedMatrix(queries.row_names[:REL_HOST_Q], dims, queries.data[:REL_HOST_Q])
+    metric = np.full(REL_D, 1.0 / REL_D)
+    dist = Distance.of_string("euclidean")
+
+    def summarize(backend, qmat):
+        buf = io.StringIO()
+        n = sm.summarize_rowwise_device(
+            dist, metric, targets, qmat, keep_at_most=REL_KEEP, normalize=True,
+            out=buf, batch=DIGEST_B, backend=backend,
+        )
+        lines = buf.getvalue().split("\n")[:-1]
+        if n != qmat.n_rows or len(lines) != n:
+            raise AssertionError(f"{backend}: {n} rows, {len(lines)} lines of {qmat.n_rows}")
+        return lines
+
+    lines, rates, launches = {}, {}, {}
+    for backend in ("pallas", "jax"):
+        summarize(backend, head)  # warm-up: allocator, cuBLAS, pinned pool
+        # the main path: every count set to 0 just before, read just after
+        for name in _build.LAUNCHES:
+            _build.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        lines[backend] = summarize(backend, queries)
+        rates[backend] = REL_Q / (time.perf_counter() - t0)
+        launches[backend] = dict(_build.LAUNCHES)
+        log("relatedness: %s route, kernel launches %s" % (backend, json.dumps(launches[backend])))
+    if not (launches["pallas"]["kpop_pairwise_dist"] and launches["pallas"]["kpop_row_digest"]):
+        raise AssertionError("pallas route: the tile or the digest never launched")
+    if launches["jax"]["kpop_pairwise_dist"] or not launches["jax"]["kpop_row_digest"]:
+        raise AssertionError("jax route: expected digest launches and no tile")
+
+    t0 = time.perf_counter()
+    host = summarize_rowwise(dist, metric, targets, head, REL_KEEP, True)
+    host_rate = REL_HOST_Q / (time.perf_counter() - t0)
+    f64 = distance_rowwise(dist, metric, targets, head).data
+    col_index = {name: i for i, name in enumerate(targets.row_names)}
+    for backend, got in lines.items():
+        swapped, ties = check_summaries(got[:REL_HOST_Q], host, f64, col_index)
+        log("relatedness: %s route, first %d queries within %g of the host float64 "
+            "lines; %d list their targets in another order, %d differ by a float32 "
+            "tie group" % (backend, REL_HOST_Q, SUMMARY_BOUND, swapped, ties))
+    log("relatedness: %d queries x %d targets x %d dims, keep %d, batch %d: pallas "
+        "%.1f, jax %.1f queries/s (upload + distances + digest + download + "
+        "format); host float64 %.1f queries/s over %d; on %s"
+        % (REL_Q, REL_T, REL_D, REL_KEEP, DIGEST_B, rates["pallas"], rates["jax"],
+           host_rate, REL_HOST_Q, card))
+
+    # kpop-countdb --distances --backend pallas on phase 4's class spectra
+    smat = countdb_spectra(table)
+    ones = np.ones(table.shape[0])
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    got = sm.distance_rowwise_device(dist, ones, smat, smat, normalize=True, backend="pallas").data
+    pallas_s = time.perf_counter() - t0
+    count_launches = dict(_build.LAUNCHES)
+    if not count_launches["kpop_pairwise_dist"]:
+        raise AssertionError("countdb distances: the tile never launched")
+    t0 = time.perf_counter()
+    plain = sm.distance_rowwise_device(dist, ones, smat, smat, normalize=True, backend="jax").data
+    plain_s = time.perf_counter() - t0
+    a = torch.as_tensor(smat.data, device=dev)
+    ones64 = torch.ones(a.shape[1], dtype=torch.float64, device=dev)
+    na = pw.row_norms(a, ones64)
+    exact = distances_f64(a, a, ones64, na, na).cpu().numpy()
+    del a, na
+    err, plain_err = float(np.abs(got - exact).max()), float(np.abs(plain - exact).max())
+    log("relatedness: countdb distances %s: max abs err to float64 %.3g on the tile "
+        "route (%.2f s), %.3g on the matmul route (%.2f s; host transfers included)"
+        % (list(got.shape), err, pallas_s, plain_err, plain_s))
+    if not np.isfinite(err) or err > F64_ERR_RATIO * plain_err:
+        raise AssertionError(f"countdb distances: error to float64 {err:.3g}, plain {plain_err:.3g}")
+    torch.cuda.empty_cache()
+    return dict(
+        launches={"relatedness": launches["pallas"], "countdb_distances": count_launches},
+        queries_per_s=rates, host_queries_per_s=host_rate,
+    )
 
 
 def main() -> int:
@@ -534,15 +863,21 @@ def main() -> int:
     log("slice: %.1f s" % (time.perf_counter() - t0))
     # 5. cli
     phase_cli()
+    # 6. relatedness
+    t0 = time.perf_counter()
+    rel = phase_relatedness(dev, card, sl.pop("table"))
+    log("relatedness: %.1f s" % (time.perf_counter() - t0))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
+    launches = {"slice": sl["launches"], **rel["launches"]}
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
-             launches=sl["launches"][r["launch"]], max_abs_err=r["err"],
+             launches=launches[r["path"]][r["launch"]], max_abs_err=r["err"],
              ms=r["ms"], plain_ms=r["plain_ms"], shape=r["shape"],
              **{k: r[k] for k in ("err_f64", "plain_err_f64") if k in r})
         for name, r in rows.items()
+        if r["path"] is not None
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -45,6 +45,8 @@ _SIGNATURES = {
     # codes, B, L, k, canonical, base, lut, V, twister, d, normalize, out,
     # stream
     "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P),
+    # dmat, B, N, k, stats, top, idx, stream
+    "kpop_row_digest": (_P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 #: launches of each kernel since the last reset (set the values to 0)

@@ -1,2 +1,2 @@
-"""Device ops of the PyTorch port: window encoding, the distance tile and
-the fused serving pipeline."""
+"""Device ops of the PyTorch port: window encoding, the distance tile, the
+fused serving pipeline and the relatedness engine."""
