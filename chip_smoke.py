@@ -3,25 +3,35 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (``nvcc``); without a card it exits 2 and
-prints no result.  It imports no JAX.  Phases, each fatal on failure:
+prints no result.  It imports nothing of JAX or of the JAX package
+(``kpop_tpu``).  Phases, each fatal on failure:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: ``nvcc`` builds ``kpop_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``kpop_tpu_torch/_build/`` (on first use);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, with the median time of both; the distance
-   tile also at phase 6's relatedness batch (2048 x 10,000 x 512, and its
-   last batch of 1,696), on raw spectra (512 x 512 x 367,987) and, for
-   timing, at 4096 x 4096 x 512, each against float64 on the card too;
-   the row digest on the relatedness batch's tile (2048 x 10,000, k=16),
-   on ties and signed zeros, on rows of 367,987 and with k = N;
-4. slice: the headline serving workload of ``bench.py`` (k=10, 512 classes
-   x 4 tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp
-   pairs at 1x coverage; vocabulary ~368k, d=511), trained with the host
-   float64 CA and classified through the dense and the bag route:
-   top-1 accuracy >= 0.95 on each, every kernel launched, distances within
-   1e-4 of the host float64 chain, and the serving rate;
-5. cli: the README quick start through ``bin/kpop-classify-torch`` and
+   the serving path's shapes, with the median time of both, the time of
+   one PyTorch call that computes the same function where there is one
+   (``library_ms``) and the least time the card could take (``bound_ms``);
+   the distance tile also at phase 6's relatedness batch (2048 x 10,000 x
+   512, and its last batch of 1,696), on raw spectra (512 x 512 x 367,987)
+   and, for timing, at 4096 x 4096 x 512, each against float64 on the card
+   too; the row digest on the relatedness batch's tile (2048 x 10,000,
+   k=16), on ties and signed zeros, on rows of 367,987 and with k = N; the
+   CA Gram on a seeded Poisson u8 table of the headline shape (367,987 x
+   512) against its plain version and a numpy float64 Gram, with one cuBLAS
+   DGEMM as its yardstick;
+4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
+   tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
+   at 1x coverage; vocabulary ~368k, d=511), trained on the card
+   (``ca_fit_sharded(phi="device")``: the wall split into masses, upload,
+   Gram, eigh and phi, the fit within tests/test_dd.py's bounds of the host
+   float64 ``fit_ca``) and classified through the dense and the bag route
+   with parameters built around the device twister: top-1 accuracy >= 0.95
+   on each, every kernel launched, distances within 1e-4 of the host float64
+   chain, and the serving rate;
+5. cli: the README quick start trained by ``bin/kpop-twist-torch --backend
+   jax`` (the device CA), then through ``bin/kpop-classify-torch`` and
    ``bin/kpop-twistdb-torch --backend pallas -s``, 0 misclassified of 100
    on each, the summaries within 2e-4 of ``kpop-twistdb``'s host float64
    lines, and ``bin/kpop-countdb-torch --backend pallas --distances``
@@ -62,6 +72,7 @@ ACCURACY_GATE = 0.95  # bench.py:695, fatal here
 HOST_CHAIN_ATOL = 1e-4
 COUNT_TOL = "exact (torch.equal)"
 BAG_RTOL, BAG_ATOL = 1e-5, 1e-6
+LIBRARY_RTOL = 1e-3  # a library call against the plain version, of max |x|
 PAIR_RTOL, PAIR_ATOL = 2e-4, 1e-5  # tests/test_pallas.py:32
 F64_ERR_RATIO = 4.0  # distance tile's error to float64 against the plain version's
 DIGEST_B, DIGEST_N, DIGEST_K = 2048, 10_000, 16  # the relatedness flagship batch
@@ -71,7 +82,20 @@ DIGEST_RTOL = 1e-5
 REL_Q, REL_T, REL_D, REL_KEEP = 100_000, 10_000, 512, 2
 REL_HOST_Q = 2000  # queries held to the host float64 path (bench.py:382)
 SUMMARY_BOUND = 2e-4  # x max(1, |x|), tests/test_device_summaries.py:55
+# the CA Gram at the headline shape: a seeded Poisson u8 table of 367,987
+# k-mers x 512 classes, held to float64 within 1e-12 of the largest |G|
+GRAM_K, GRAM_NS, GRAM_LAMBDA = 367_987, 512, 1.0
+GRAM_RTOL = 1e-12
+# the card's peaks for the bound of each kernel, from NVIDIA's H100 SXM
+# data sheet
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12  # float32 outside the tensor cores
+TF32_FLOPS = 495e12  # TF32 on the tensor cores
+F64_TC_FLOPS = 67e12  # FP64 tensor cores
+F64_FLOPS = 34e12  # FP64 outside the tensor cores
 SLICE_KERNELS = ("kpop_count_spectra", "kpop_embedding_bag", "kpop_pairwise_dist")
+# the device CA against the host float64 fit_ca: tests/test_dd.py:81-84
+CA_BOUNDS = dict(sv=1e-8, inertia=1e-8, coords=1e-6, twister=1e-5)
 
 
 def log(msg: str) -> None:
@@ -161,6 +185,41 @@ def distances_f64(a, b, m, na, nb):
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
+def bound(nbytes: float, flops_ms: float) -> dict:
+    """The least time for the work: the larger of its bytes over the HBM
+    rate and the time of its operations at peak (``flops_ms``, already in
+    ms), with the side that bounds it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def tile_bound(a, b, m, na, nb) -> dict:
+    """Distance tile: each input read once (a and b once when they are one
+    tensor), the [Q, T] output written once; the cross term as the kernel
+    computes it, three TF32 products of 2 Q T D operations each on the
+    tensor cores, and 3 (Q + T) D float32 operations for the norms."""
+    Q, D = a.shape
+    T = b.shape[0]
+    ins = a.nbytes + (0 if b.data_ptr() == a.data_ptr() else b.nbytes) + m.nbytes + na.nbytes + nb.nbytes
+    ops_ms = (3 * 2.0 * Q * T * D / TF32_FLOPS + 3.0 * (Q + T) * D / F32_FLOPS) * 1e3
+    return bound(ins + Q * T * 4, ops_ms)
+
+
+def cdist_ms(a, b, m, na, nb) -> float:
+    """One torch.cdist on the rows scaled by sqrt(m) / n: the library call
+    that computes the tile's function (a yardstick; the port never calls
+    it)."""
+    import torch
+
+    sm = torch.sqrt(m)[None, :]
+    a_s = (a / na[:, None]) * sm
+    b_s = a_s if b.data_ptr() == a.data_ptr() and nb.data_ptr() == na.data_ptr() else (b / nb[:, None]) * sm
+    ms = time_ms(lambda: torch.cdist(a_s, b_s), reps=5)
+    del a_s, b_s
+    return ms
+
+
 def tile_check(args, shape: str, strict: bool):
     """The distance tile against its plain version and float64 on the card:
     its max abs error to float64 at most F64_ERR_RATIO times the plain
@@ -204,6 +263,8 @@ def tile_row(args, shape: str, strict: bool, path: str | None) -> dict:
         errs, out=got,
         ms=time_ms(lambda: pw.distance_tile(*args)),
         plain_ms=time_ms(lambda: pw.distance_tile_ref(*args)),
+        library_ms=cdist_ms(*args) if path is not None else None,
+        **tile_bound(*args),
         shape=shape, tol=tol,
         source="kpop_tpu_torch/csrc/pairwise.cu",
         replaces="kpop_tpu/ops/pallas_pairwise.py:43",
@@ -291,7 +352,13 @@ def digest_row(dev, flagship) -> dict:
         log("kernel row_digest at %s: exact %s; mean/std rel %.3g to plain, %.3g to "
             "float64" % (shape, sorted(exact), rel_plain, rel_f64))
     shape, dmat, k = blocks[0]
+    # the block read once, the stats and the k smallest values and columns
+    # written once; 2 B N operations for the moments (float32 rate)
+    B, N = dmat.shape
+    out_bytes = sum(t.nbytes for t in sm.digest_batch(dmat, k))
     return dict(
+        bound(dmat.nbytes + out_bytes, 2.0 * B * N / F32_FLOPS * 1e3),
+        library_ms=None,
         err=max(errs),
         ms=time_ms(lambda: sm.digest_batch(dmat, k)),
         plain_ms=time_ms(lambda: sm.digest_batch_ref(dmat, k), reps=5),
@@ -301,6 +368,83 @@ def digest_row(dev, flagship) -> dict:
         replaces="kpop_tpu/ops/summaries.py:93",
         launch="kpop_row_digest", path="relatedness",
     )
+
+
+def poisson_table(K: int, ns: int, lam: float, seed: int) -> np.ndarray:
+    """[K, ns] u8 counts from a seeded Poisson generator, made in blocks."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((K, ns), dtype=np.uint8)
+    step = 1 << 15
+    for i in range(0, K, step):
+        out[i : i + step] = rng.poisson(lam, size=(min(step, K - i), ns))
+    return out
+
+
+def gram_row(dev) -> dict:
+    """The residual-Gram kernel at the headline training shape against its
+    plain version and a numpy float64 Gram of the same residual, each
+    within GRAM_RTOL of the largest |G|; timed with the plain version and,
+    as the yardstick, one cuBLAS DGEMM S^T S on a pre-built float64 S."""
+    import torch
+
+    from kpop_tpu_torch.ops import gram
+    from kpop_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    table = poisson_table(GRAM_K, GRAM_NS, GRAM_LAMBDA, seed=4)
+    alpha, u, beta, v, r, _ = sharded.residual_vectors(table, None)
+    alpha = alpha * (r > 0)
+    want = np.zeros((GRAM_NS, GRAM_NS))
+    step = 1 << 15
+    for i in range(0, GRAM_K, step):
+        S = table[i : i + step] * alpha[i : i + step, None] * beta[None, :] - np.outer(u[i : i + step], v)
+        want += S.T @ S
+    del S
+    host_s = time.perf_counter() - t0
+    x = torch.as_tensor(table, device=dev)
+    vecs = [torch.as_tensor(a, device=dev) for a in (alpha, u, beta, v)]
+    got = gram.residual_gram(x, *vecs)
+    plain = gram.residual_gram_ref(x, *vecs)
+    again = gram.residual_gram(x, *vecs)
+    torch.cuda.synchronize()
+    scale = float(np.abs(want).max())
+    g, pl_ = got.cpu().numpy(), plain.cpu().numpy()
+    rel_f64 = float(np.abs(g - want).max()) / scale
+    rel_plain = float(np.abs(g - pl_).max()) / scale
+    plain_rel_f64 = float(np.abs(pl_ - want).max()) / scale
+    log("kernel ca_gram at [%d, %d] u8: max |G - plain| %.3g, |G - numpy float64| %.3g "
+        "(plain %.3g) of max |G| %.6g; symmetric %s, bit-identical on a second call %s "
+        "(numpy reference %.1f s)"
+        % (GRAM_K, GRAM_NS, rel_plain, rel_f64, plain_rel_f64, scale,
+           bool(np.array_equal(g, g.T)), bool(torch.equal(got, again)), host_s))
+    if not (rel_f64 <= GRAM_RTOL and rel_plain <= GRAM_RTOL) or not torch.equal(got, again):
+        raise AssertionError(
+            f"ca_gram off float64: {rel_plain:.3g} to plain, {rel_f64:.3g} to numpy "
+            f"(bound {GRAM_RTOL:g} of max |G|), reproducible {bool(torch.equal(got, again))}"
+        )
+    ms = time_ms(lambda: gram.residual_gram(x, *vecs))
+    plain_ms = time_ms(lambda: gram.residual_gram_ref(x, *vecs), reps=5)
+    S = gram.residual(x, *vecs)
+    library_ms = time_ms(lambda: S.T @ S, reps=5)
+    del S
+    K, ns = GRAM_K, GRAM_NS
+    # the table and the vectors read once, G written once; K ns (ns + 1)
+    # operations for the distinct entries of G on the FP64 tensor cores,
+    # 3 K ns for the rebuild outside them
+    nbytes = x.nbytes + sum(t.nbytes for t in vecs) + got.nbytes
+    row = dict(
+        bound(nbytes, (K * ns * (ns + 1.0) / F64_TC_FLOPS + 3.0 * K * ns / F64_FLOPS) * 1e3),
+        err=float(np.abs(g - pl_).max()), err_f64=rel_f64 * scale, plain_err_f64=plain_rel_f64 * scale,
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        shape=f"[{K}, {ns}] u8 Poisson({GRAM_LAMBDA:g}) table",
+        tol=f"rel {GRAM_RTOL:g} of max |G| to plain and to numpy float64; bit-reproducible",
+        source="kpop_tpu_torch/csrc/ca_gram.cu",
+        replaces="kpop_tpu/parallel/sharded.py:174",
+        launch="kpop_ca_gram", path="train",
+    )
+    del x, vecs, got, plain, again
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
@@ -324,7 +468,11 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         )
     if float(got[1].max()) < L - 300 - K:
         raise AssertionError("a repeated k-mer was not counted every time")
+    # codes and LUT read once, the [B, V] spectra written once; one add per
+    # window
     rows["count_spectra"] = dict(
+        bound(codes.nbytes + params.vocab_lut.nbytes + got.nbytes, B * (L - K + 1) / F32_FLOPS * 1e3),
+        library_ms=None,
         err=float((got - want).abs().max()),
         ms=time_ms(lambda: pl.count_spectra(params, codes)),
         plain_ms=time_ms(lambda: pl.count_spectra_ref(params, codes), reps=5),
@@ -343,7 +491,28 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
             "embedding bag differs from its plain version: max abs %.3g"
             % float((got - want).abs().max())
         )
+    # codes and LUT read once, each twister row the reads hit read once, the
+    # [B, d] output written once; an add per known window and column.  The
+    # library call: F.embedding_bag over the looked-up indices, weighted by
+    # 1 / n_known per read set (the same function in one call)
+    idx = pl.vocab_lookup(params, codes)
+    known = idx < V
+    flat = idx[known].long()
+    per_row = known.sum(dim=1)
+    offsets = torch.cumsum(per_row, 0) - per_row
+    weights = (1.0 / torch.clamp(per_row, min=1).float()).repeat_interleave(per_row)
+    bag_lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        flat, params.twister, offsets, mode="sum", per_sample_weights=weights)
+    # the library sums each bag in f32 in one sequence: on the row that
+    # repeats one k-mer 30,199 times that drifts to about 3e-4 relative
+    lib_err = float((bag_lib() - want).abs().max())
+    if not lib_err <= LIBRARY_RTOL * float(want.abs().max()):
+        raise AssertionError(f"F.embedding_bag does not compute the bag's function: {lib_err:.3g}")
+    hit = int(torch.unique(flat).numel())
     rows["embedding_bag"] = dict(
+        bound(codes.nbytes + params.vocab_lut.nbytes + hit * d * 4 + got.nbytes,
+              float(flat.numel()) * d / F32_FLOPS * 1e3),
+        library_ms=time_ms(bag_lib, reps=5),
         err=float((got - want).abs().max()),
         ms=time_ms(lambda: pl.project_reads(params, codes), reps=5),
         plain_ms=time_ms(lambda: pl.project_reads_ref(params, codes), reps=3),
@@ -353,6 +522,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         replaces="kpop_tpu/ops/pipeline.py:200",
         launch="kpop_embedding_bag", path="slice",
     )
+    del idx, known, flat, per_row, offsets, weights, bag_lib
 
     # the distance tile at four shapes.  The slice's: [B, d] twisted reads
     # against [C, d] classes, with the class norms of the parameters, as
@@ -410,10 +580,14 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     rows["row_digest"] = digest_row(dev, flagship)
     del flagship
     torch.cuda.empty_cache()
+    rows["ca_gram"] = gram_row(dev)
     for name, r in rows.items():
         log(
             "kernel %-26s %s: max abs err %.3g (%s); kernel %.4f ms, plain "
-            "%.4f ms" % (name, r["shape"], r["err"], r["tol"], r["ms"], r["plain_ms"])
+            "%.4f ms, library %s ms, bound %.4f ms (%s)"
+            % (name, r["shape"], r["err"], r["tol"], r["ms"], r["plain_ms"],
+               "%.4f" % r["library_ms"] if r["library_ms"] is not None else "none",
+               r["bound_ms"], r["bound_by"])
         )
     return rows
 
@@ -437,8 +611,8 @@ def build_corpus(rng, n_classes: int, genome_len: int, tips_per_class=4,
     clades of a random tree, the first half of each clade's tips summed as
     the class's training counts, the rest held out.  Returns (space,
     vocabulary hex labels, [K, C] int32 table, held-out (class, codes))."""
-    from kpop_tpu.core.count import spectrum_of_sequences
-    from kpop_tpu.core.kmers import KmerSpace
+    from kpop_tpu_torch.core.count import spectrum_of_sequences
+    from kpop_tpu_torch.core.kmers import KmerSpace
 
     phylo = load_phylo()
     space = KmerSpace("DNA-ds", K)
@@ -507,10 +681,10 @@ def serve(step, batches):
 def host_chain_distances(space, twister, coords, metric_vec, seqs):
     """Host float64 golden chain: Twister.project_entries, then
     distance_rowwise against the classes."""
-    from kpop_tpu.core.count import spectrum_of_sequences
-    from kpop_tpu.core.kmers import hex_labels_vectorized
-    from kpop_tpu.core.matrix import NamedMatrix
-    from kpop_tpu.core.space import Distance, distance_rowwise
+    from kpop_tpu_torch.core.count import spectrum_of_sequences
+    from kpop_tpu_torch.core.kmers import hex_labels_vectorized
+    from kpop_tpu_torch.core.matrix import NamedMatrix
+    from kpop_tpu_torch.core.space import Distance, distance_rowwise
 
     entries = []
     for s in seqs:
@@ -524,16 +698,34 @@ def host_chain_distances(space, twister, coords, metric_vec, seqs):
     return distance_rowwise(Distance.of_string("euclidean"), metric_vec, tmat, qmat).data
 
 
+def ca_errors(coords, inertia, twister, sv, host) -> dict:
+    """Max abs errors of a device CA fit against the host float64 fit_ca:
+    sv, inertia, and per column up to sign (tests/test_ca_streamed.py:
+    32-37) the sample coordinates and the [K, d] twister."""
+    tw = twister.cpu().numpy()
+    err = dict(sv=float(np.abs(sv - host.sv).max()),
+               inertia=float(np.abs(inertia - host.inertia).max()), coords=0.0, twister=0.0)
+    for j in range(len(host.sv)):
+        a, b = coords[:, j], host.sample_coords[:, j]
+        sign = 1.0 if np.dot(a, b) >= 0 else -1.0
+        err["coords"] = max(err["coords"], float(np.abs(a - sign * b).max()))
+        err["twister"] = max(
+            err["twister"], float(np.abs(tw[:, j].astype(np.float64) - sign * host.twister[j]).max())
+        )
+    return err
+
+
 def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     import torch
 
-    from kpop_tpu.core.ca import fit_ca
-    from kpop_tpu.core.matrix import KPopMatrix, MatrixType, NamedMatrix
-    from kpop_tpu.core.space import Metric
-    from kpop_tpu.core.twister import Twister
     from kpop_tpu_torch import _build
     from kpop_tpu_torch.cli.classify import DeviceStep, pick_path
-    from kpop_tpu_torch.ops.pipeline import build_classifier_params
+    from kpop_tpu_torch.core.ca import fit_ca
+    from kpop_tpu_torch.core.matrix import KPopMatrix, MatrixType, NamedMatrix
+    from kpop_tpu_torch.core.space import Metric
+    from kpop_tpu_torch.core.twister import Twister
+    from kpop_tpu_torch.ops.pipeline import params_around_twister
+    from kpop_tpu_torch.parallel import sharded
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -552,13 +744,57 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
             NamedMatrix(["inertia"], ca.dim_names, ca.inertia[None, :]),
         ),
     )
-    log("slice: host float64 CA fit, twister [%d, %d] (%.1f s)"
+    log("slice: host float64 CA fit (the reference), twister [%d, %d] (%.1f s)"
         % (len(vocab_hex), d, time.perf_counter() - t0))
+
+    # the train path: the device CA as bench.py:509-511 calls it, the
+    # twister left on the card; every count set to 0 just before, read
+    # just after
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
     t0 = time.perf_counter()
-    params = build_classifier_params(space, twister, ca.sample_coords, device=dev)
+    coords, inertia, phi_dev, sv = sharded.ca_fit_sharded(
+        table, col_weights=col_w, phi="device", device=dev
+    )
     torch.cuda.synchronize()
-    log("slice: classifier parameters on %s, twister %.1f MB (%.1f s)"
-        % (dev, params.twister.numel() * 4 / 1e6, time.perf_counter() - t0))
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    phases = dict(sharded.LAST_CA_PHASES)
+    log("slice: device CA fit on the %s wire, %.3f s: %s; launches %s; on %s"
+        % (sharded.LAST_DD_UPLOAD, train_s,
+           ", ".join("%s %.4f s" % kv for kv in phases.items()),
+           json.dumps(train_launches), card))
+    if not train_launches["kpop_ca_gram"]:
+        raise AssertionError("the train path never launched the Gram kernel")
+    if phi_dev.shape != (len(vocab_hex), d) or phi_dev.dtype != torch.float32 or phi_dev.device.type != dev.type:
+        raise AssertionError(f"device twister {phi_dev.dtype} {tuple(phi_dev.shape)} on {phi_dev.device}")
+    # the f32 twister on the card cannot hold entries of a few hundred to
+    # 1e-5, so the bounds hold the same fit with phi="host" (float64), and
+    # the card's twister must be exactly that fit rounded to f32
+    t0 = time.perf_counter()
+    coords64, inertia64, tw64, sv64 = sharded.ca_fit_sharded(table, col_weights=col_w, device=dev)
+    tw64 = torch.as_tensor(np.ascontiguousarray(tw64.T))
+    rounded = torch.equal(phi_dev.cpu(), tw64.float())
+    same = all(np.array_equal(a, b) for a, b in ((coords, coords64), (inertia, inertia64), (sv, sv64)))
+    ca_err = ca_errors(coords64, inertia64, tw64, sv64, ca)
+    log("slice: device CA (phi on the host, float64) vs host fit_ca, max abs (columns up "
+        "to sign): %s; bounds %s; the card's twister is that fit rounded to f32: %s, its "
+        "other outputs equal: %s; max |twister| %.6g (%.1f s)"
+        % (json.dumps(ca_err), json.dumps(CA_BOUNDS), rounded, same,
+           float(tw64.abs().max()), time.perf_counter() - t0))
+    bad = {k: v for k, v in ca_err.items() if not v <= CA_BOUNDS[k]}
+    if bad or not (rounded and same):
+        raise AssertionError(f"device CA off the host float64 fit: {bad}, f32 rounding {rounded}, "
+                             f"outputs equal {same}")
+    del tw64
+
+    # serving parameters around the device twister (bench.py:563-589), no
+    # download and no re-upload
+    t0 = time.perf_counter()
+    params = params_around_twister(space, vocab_hex, phi_dev, inertia, coords)
+    torch.cuda.synchronize()
+    log("slice: classifier parameters around the device twister, %.1f MB (%.1f s)"
+        % (params.twister.numel() * 4 / 1e6, time.perf_counter() - t0))
     batches = read_set_batches(rng, held_out, batch)
     n_seqs = sum(len(t) for t, _ in batches)
     truth = np.concatenate([t for t, _ in batches])
@@ -605,15 +841,16 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     log("slice: serving %s seqs/s over %d read sets per pass (route %s; "
         "host encode + upload + device step + download), on %s"
         % ([round(r, 1) for r in rates], n_seqs, auto, card))
-    return dict(launches=launches, accuracy=accuracy, host_err=host_err,
-                seqs_per_s=rates, vocab=params.n_vocab, d=d, table=table)
+    return dict(launches=launches, train_launches=train_launches, accuracy=accuracy,
+                host_err=host_err, seqs_per_s=rates, vocab=params.n_vocab, d=d,
+                train_s=train_s, train_phases=phases, ca_err=ca_err, table=table)
 
 
 # ---------------- phase 5: the quick start through the CLI ---------------
 
 
 def phase_cli() -> int:
-    from kpop_tpu.core.matrix import KPopMatrix, MatrixType
+    from kpop_tpu_torch.core.matrix import KPopMatrix, MatrixType
 
     env = dict(os.environ)
     env["PATH"] = os.path.join(REPO, "bin") + os.pathsep + env.get("PATH", "")
@@ -627,7 +864,7 @@ def phase_cli() -> int:
         "  kpop-count -k 5 -L -f /dev/stdin |\n"
         "  kpop-countdb -k /dev/stdin -R '~.' -A $CLASS -L $CLASS -N -D -t /dev/stdout\n"
         "done | kpop-countdb -k /dev/stdin -o Classes.5\n"
-        "kpop-twist -i Classes.5 -o Classes.5\n"
+        "kpop-twist-torch --backend jax -i Classes.5 -o Classes.5\n"
         "cat clusters-small.fasta |\n"
         "  awk '{nr=(NR-1)%4; if (nr==2) split($0,s,\"[>-]\"); if (nr==3) print \">\"s[2]\"-\"s[3]\"\\n\"$0}' > test.fasta\n"
         "kpop-classify-torch -T Classes.5 -t Classes.5 -f test.fasta -o Test_prediction.5\n"
@@ -723,7 +960,7 @@ def countdb_spectra(table: np.ndarray):
     """The class spectra of a [V, C] count table as ``kpop-countdb
     --distances`` sees them (``CounterDB.submatrix_normalized``): one row
     per class, divided by its count sum."""
-    from kpop_tpu.core.matrix import NamedMatrix
+    from kpop_tpu_torch.core.matrix import NamedMatrix
 
     sums = table.sum(axis=0).astype(np.float64)
     spectra = table.T.astype(np.float64) / np.where(sums == 0.0, 1.0, sums)[:, None]
@@ -743,8 +980,8 @@ def phase_relatedness(dev, card: str, table: np.ndarray) -> dict:
 
     import torch
 
-    from kpop_tpu.core.matrix import NamedMatrix
-    from kpop_tpu.core.space import Distance, distance_rowwise, summarize_rowwise
+    from kpop_tpu_torch.core.matrix import NamedMatrix
+    from kpop_tpu_torch.core.space import Distance, distance_rowwise, summarize_rowwise
     from kpop_tpu_torch import _build
     from kpop_tpu_torch.ops import pairwise as pw
     from kpop_tpu_torch.ops import summaries as sm
@@ -860,22 +1097,24 @@ def main() -> int:
     # 4. slice
     t0 = time.perf_counter()
     sl = phase_slice(dev, N_CLASSES, GENOME_LEN, BATCH, card)
-    log("slice: %.1f s" % (time.perf_counter() - t0))
+    log("slice: %.1f s (device CA fit %.3f s)" % (time.perf_counter() - t0, sl["train_s"]))
     # 5. cli
     phase_cli()
     # 6. relatedness
     t0 = time.perf_counter()
     rel = phase_relatedness(dev, card, sl.pop("table"))
     log("relatedness: %.1f s" % (time.perf_counter() - t0))
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kpop_tpu"))
+    if loaded:
+        raise AssertionError("JAX or the JAX package was imported: %s" % loaded[:10])
 
-    launches = {"slice": sl["launches"], **rel["launches"]}
+    launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"]}
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[r["path"]][r["launch"]], max_abs_err=r["err"],
-             ms=r["ms"], plain_ms=r["plain_ms"], shape=r["shape"],
-             **{k: r[k] for k in ("err_f64", "plain_err_f64") if k in r})
+             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
+             path=r["path"], **{k: r[k] for k in ("err_f64", "plain_err_f64") if k in r})
         for name, r in rows.items()
         if r["path"] is not None
     ]

@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``csrc/`` with ``nvcc`` and load them.
 
-All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface, loaded with :mod:`ctypes` (no PyTorch headers, so the build
+Each ``csrc/*.cu`` file compiles to an object by its own ``nvcc``, all
+started together, and the objects link into one shared library with a plain
+C interface, loaded with :mod:`ctypes` (no PyTorch headers, so the build
 takes seconds).  The library lands in ``kpop_tpu_torch/_build/`` under a
 name keyed by a hash of the sources and flags, and is built on first use.
 A failed build raises with ``nvcc``'s output; nothing falls back.
@@ -31,7 +32,7 @@ _CSRC = _DIR / "csrc"
 _OUT = _DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -47,6 +48,9 @@ _SIGNATURES = {
     "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P),
     # dmat, B, N, k, stats, top, idx, stream
     "kpop_row_digest": (_P, _I, _I, _I, _P, _P, _P, _P),
+    # x, wire, K, ns, alpha, u, beta, v, slices, rows per slice, out,
+    # workspace, stream
+    "kpop_ca_gram": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P),
 }
 
 #: launches of each kernel since the last reset (set the values to 0)
@@ -58,7 +62,8 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
+    """The CUDA toolkit's ``nvcc``: on ``PATH``, else under ``CUDA_HOME``."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -85,26 +90,36 @@ def library_path() -> Path:
     return _OUT / f"libkpop_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (exit %d): %s\n%s" % (p.returncode, " ".join(cmd), out)
+            )
+
+
 def _build(target: Path) -> None:
     global BUILD_SECONDS
     _OUT.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a second process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(dir=_OUT, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (exit %d): %s\n%s%s"
-                % (res.returncode, " ".join(cmd), res.stdout, res.stderr)
-            )
+    # objects in a private directory, the library under a temporary name,
+    # then a rename: a second process never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=_OUT) as tmpdir:
+        sources = _sources()
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources]
+        nvcc = nvcc_path()
+        _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+              for src, obj in zip(sources, objs)])
+        tmp = os.path.join(tmpdir, target.name)
+        _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
         os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     BUILD_SECONDS = time.perf_counter() - t0
 
 

@@ -22,20 +22,19 @@ import sys
 import numpy as np
 import torch
 
-from kpop_tpu.cli.classify import infer_k
-from kpop_tpu.core.kmers import KmerSpace
-from kpop_tpu.core.matrix import KPopMatrix, MatrixType
-from kpop_tpu.core.space import Distance, Metric, summarize_distance_row
-from kpop_tpu.core.twister import Twister
-from kpop_tpu.io.reads import (
+from ..core.kmers import KmerSpace
+from ..core.matrix import KPopMatrix, MatrixType
+from ..core.space import Distance, Metric, summarize_distance_row
+from ..core.twister import Twister
+from ..io.reads import (
     FastaInput,
     PairedEndFastqInput,
     SingleEndFastqInput,
     iter_reads,
 )
-from kpop_tpu.utils.cli import Args, ParseError, Parser
-from kpop_tpu.utils.naming import SUMMARY_EXT, close_if_owned, open_out, with_ext
-from kpop_tpu.utils.progress import set_verbose
+from ..utils.cli import Args, ParseError, Parser
+from ..utils.naming import SUMMARY_EXT, close_if_owned, open_out, with_ext
+from ..utils.progress import set_verbose
 
 from .. import __version__
 from ..config import device
@@ -49,6 +48,58 @@ from ..ops.pipeline import (
     project,
     project_reads,
 )
+
+
+class AmbiguousK(ValueError):
+    pass
+
+
+def infer_k(
+    content: str, kmer_names: list[str], k: int = 0, verbose: bool = False
+) -> int:
+    """Infer (or validate) k from the twister's hex k-mer labels.
+
+    Hex width alone is not injective in k (e.g. DNA k=5 and k=6 both use 3
+    hex digits), so every candidate with the right width is checked against
+    the labels' maximum code; a supplied ``k`` is validated the same way and
+    a mismatch is a hard error rather than silent misclassification.  When
+    several k remain consistent the smallest is used with a warning — pass
+    ``-k`` to silence it.
+    """
+    if not kmer_names:
+        raise AmbiguousK("twister has no k-mer labels; pass -k")
+    width = len(kmer_names[0])
+    max_code = max(int(n, 16) for n in kmer_names)
+    k_limit = 30 if content.startswith("DNA") else 12
+    if k:
+        sp = KmerSpace(content, k)
+        if sp.hex_width != width or max_code >= sp.n_kmers:
+            raise AmbiguousK(
+                f"k={k} is inconsistent with the twister's labels "
+                f"(width {width}, max code {max_code:#x}); "
+                f"expected width {sp.hex_width}, codes < {sp.n_kmers:#x}"
+            )
+        return k
+    consistent = [
+        c
+        for c in range(1, k_limit + 1)
+        if KmerSpace(content, c).hex_width == width
+        and max_code < KmerSpace(content, c).n_kmers
+    ]
+    if not consistent:
+        raise AmbiguousK(
+            f"cannot infer k from labels (width {width}, max code "
+            f"{max_code:#x}); pass -k"
+        )
+    k = consistent[0]
+    if len(consistent) > 1:
+        sys.stderr.write(
+            f"(KPopClassify): WARNING k is ambiguous from labels alone "
+            f"(candidates {consistent}); using k={k} — pass -k to override\n"
+        )
+    elif verbose:
+        sys.stderr.write(f"(KPopClassify): inferred k={k}\n")
+    return k
 
 
 def pick_path(B: int, W: int, V: int, d: int) -> str:
@@ -256,9 +307,9 @@ def main(argv=None) -> int:
         step = DeviceStep(params, state["project_path"])
         dispatch_seqs, materialize = step.dispatch, step.materialize
     else:
-        from kpop_tpu.core.count import spectrum_of_sequences
-        from kpop_tpu.core.matrix import NamedMatrix
-        from kpop_tpu.core.space import distance_rowwise
+        from ..core.count import spectrum_of_sequences
+        from ..core.matrix import NamedMatrix
+        from ..core.space import distance_rowwise
 
         metric_vec = twister.metrics_vector(state["metric"])
         tmat = NamedMatrix(
@@ -362,6 +413,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    from kpop_tpu.utils.cli import run
+    from ..utils.cli import run
 
     sys.exit(run(main))

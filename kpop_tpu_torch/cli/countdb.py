@@ -15,12 +15,12 @@ from __future__ import annotations
 import sys
 from dataclasses import replace as dc_replace
 
-from kpop_tpu.core.counter_db import CounterDB, TableFilter
-from kpop_tpu.core.matrix import KPopMatrix, MatrixType
-from kpop_tpu.core.space import Distance, distance_rowwise
-from kpop_tpu.core.transforms import Transformation
-from kpop_tpu.utils.cli import Args, Parser, parse_regexp_selector
-from kpop_tpu.utils.progress import set_verbose
+from ..core.counter_db import CounterDB, TableFilter
+from ..core.matrix import KPopMatrix, MatrixType
+from ..core.space import Distance, distance_rowwise
+from ..core.transforms import Transformation
+from ..utils.cli import Args, Parser, parse_regexp_selector
+from ..utils.progress import set_verbose
 
 from .. import __version__
 from .twistdb import DEVICE_BACKENDS
@@ -347,6 +347,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    from kpop_tpu.utils.cli import run
+    from ..utils.cli import run
 
     sys.exit(run(main))

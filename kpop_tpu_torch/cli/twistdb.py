@@ -16,14 +16,8 @@ from __future__ import annotations
 import sys
 from typing import List
 
-from kpop_tpu.cli.twistdb import (
-    MATRIX_OF_REGISTER,
-    REGISTER_TYPES,
-    _parse_keep_at_most,
-    _register,
-)
-from kpop_tpu.core.matrix import KPopMatrix, MatrixType
-from kpop_tpu.core.space import (
+from ..core.matrix import KPopMatrix, MatrixType
+from ..core.space import (
     Distance,
     Metric,
     get_distance_rowwise,
@@ -32,13 +26,53 @@ from kpop_tpu.core.space import (
     summarize_dmatrix,
     summarize_rowwise_typed,
 )
-from kpop_tpu.core.splits import Splits, get_splits
-from kpop_tpu.core.twister import Twister
-from kpop_tpu.utils.cli import Args, ParseError, Parser
-from kpop_tpu.utils.naming import SUMMARY_EXT, close_if_owned, open_out, with_ext
-from kpop_tpu.utils.progress import set_verbose
+from ..core.splits import Splits, get_splits
+from ..core.twister import Twister
+from ..utils.cli import Args, ParseError, Parser
+from ..utils.naming import SUMMARY_EXT, close_if_owned, open_out, with_ext
+from ..utils.progress import set_verbose
 
 from .. import __version__
+
+REGISTER_TYPES = {
+    "m": "metrics",
+    "T": "twister",
+    "t": "twisted",
+    "e": "embeddings",
+    "d": "distances",
+    "s": "splits",
+}
+
+MATRIX_OF_REGISTER = {
+    "twisted": MatrixType.TWISTED,
+    "embeddings": MatrixType.VECTORS,
+    "distances": MatrixType.DMATRIX,
+}
+
+
+def _register(a: Args, allowed: str) -> str:
+    v = a.get()
+    if v not in REGISTER_TYPES:
+        raise ParseError(f"Invalid register type '{v}'")
+    if v not in allowed:
+        raise ParseError(
+            f"Option '{a.current_opt}': register '{v}' not allowed here"
+        )
+    return REGISTER_TYPES[v]
+
+
+def _parse_keep_at_most(a: Args):
+    v = a.get()
+    if v == "all":
+        return None
+    try:
+        n = int(v)
+        if n <= 0:
+            raise ValueError
+    except ValueError:
+        raise ParseError(f"Invalid keep-at-most '{v}'") from None
+    return n
+
 
 #: --backend values that run on the port's device
 DEVICE_BACKENDS = ("jax", "tpu", "device", "pallas")
@@ -454,6 +488,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    from kpop_tpu.utils.cli import run
+    from ..utils.cli import run
 
     sys.exit(run(main))

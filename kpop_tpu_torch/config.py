@@ -14,6 +14,12 @@ Importing the package pins float32 matrix products to full float32 (no
 TF32, in cuBLAS or cuDNN), the counterpart of ``Precision.HIGHEST`` in
 ``kpop_tpu/parallel/sharded.py``.  TF32 keeps about three decimal digits,
 which the distance parity bounds cannot absorb.
+
+Counting
+--------
+``KPOP_DENSE_K_MAX`` (default 13) is the largest k that the host counter
+(:mod:`kpop_tpu_torch.core.count`) counts in a dense 4^k array, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ import os
 
 import torch
 
+
+#: maximum k for which the dense 4^k counting path is used (4^13 = 67M
+#: int32 = 268 MB; beyond that the host sparse path takes over)
+DENSE_K_MAX = int(os.environ.get("KPOP_DENSE_K_MAX", "13"))
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

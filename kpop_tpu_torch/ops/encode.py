@@ -92,14 +92,14 @@ def encode_reads_host(
     """Lint and encode sequences, padded to a common length with -1.
 
     Padding breaks windows at sequence ends.  Uses the native batch encoder
-    (``kpop_tpu/native``) when it is available, else numpy, with identical
+    (``kpop_tpu_torch/native``) when it is available, else numpy, with identical
     output.
     """
-    from kpop_tpu import native
+    from .. import native
 
     if native.available():
         return native.encode_batch(seqs, protein, length)
-    from kpop_tpu.core.kmers import encode_dna, encode_protein
+    from ..core.kmers import encode_dna, encode_protein
 
     enc = encode_protein if protein else encode_dna
     encoded = [enc(s) for s in seqs]

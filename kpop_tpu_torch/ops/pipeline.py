@@ -28,9 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from kpop_tpu.core.kmers import KmerSpace
-from kpop_tpu.core.space import Distance, Metric, normalizations
-from kpop_tpu.core.twister import Twister
+from ..core.kmers import KmerSpace
+from ..core.space import Distance, Metric, normalizations
+from ..core.twister import Twister
 
 from .. import _build
 from .encode import lut_k_max, window_codes_batch
@@ -105,12 +105,34 @@ def build_classifier_params(
     device: torch.device | str | None = None,
 ) -> ClassifierParams:
     """Assemble device parameters from host artefacts (the dense-LUT branch
-    of the JAX ``build_classifier_params``): the twister's hex k-mer labels
-    become a lookup table over the whole base^k code space, with unknown
-    k-mers routed to V (dropped, lib/Twister.ml:167-169)."""
+    of the JAX ``build_classifier_params``): the host ``[d, V]`` twister is
+    uploaded as ``[V, d]`` f32, then :func:`params_around_twister`."""
     from ..config import device as default_device
 
     device = default_device() if device is None else torch.device(device)
+    tw = np.asarray(twister.twister.matrix.data, dtype=np.float32).T  # [V, d]
+    return params_around_twister(
+        space, twister.kmer_names,
+        torch.as_tensor(np.ascontiguousarray(tw), device=device),
+        np.asarray(twister.inertia.matrix.data[0]), class_coords, distance, metric,
+    )
+
+
+def params_around_twister(
+    space: KmerSpace,
+    kmer_names: list[str],
+    twister: torch.Tensor,
+    inertia: np.ndarray,
+    class_coords: np.ndarray,
+    distance: Distance | None = None,
+    metric: Metric | None = None,
+) -> ClassifierParams:
+    """Classifier parameters around a ``[V, d]`` f32 twister that already
+    lies on its device, such as the one ``ca_fit_sharded(phi="device")``
+    trains (the train-to-serve handoff of ``bench.py``, without a download):
+    the hex k-mer labels become a lookup table over the whole base^k code
+    space, with unknown k-mers routed to V (dropped, lib/Twister.ml:
+    167-169); the metric comes from the inertia (lib/Twister.ml:208-209)."""
     distance = distance or Distance.of_string("euclidean")
     metric = metric or Metric.of_string("powers(1,1,2)")
     if space.k > lut_k_max(space.base):
@@ -119,24 +141,20 @@ def build_classifier_params(
             f"{lut_k_max(space.base)}: the large-k cuckoo lookup is "
             f"{ROADMAP_NOTE}"
         )
-    kmer_codes = np.array(
-        [space.hex_to_code(h) for h in twister.kmer_names], dtype=np.int64
-    )
+    kmer_codes = np.array([space.hex_to_code(h) for h in kmer_names], dtype=np.int64)
     V = len(kmer_codes)
     lut = np.full(space.n_kmers + 1, V, dtype=np.int32)
     lut[kmer_codes] = np.arange(V, dtype=np.int32)
-    tw = np.asarray(twister.twister.matrix.data, dtype=np.float64)  # [d, V]
-    mvec = twister.metrics_vector(metric)
+    mvec = metric.compute(np.asarray(inertia, dtype=np.float64))
     cls_norms = normalizations(distance, mvec, class_coords)
+    device = twister.device
 
     def f32(x):  # C order: the kernels take contiguous tensors
-        return torch.as_tensor(
-            np.ascontiguousarray(x, dtype=np.float32), device=device
-        )
+        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)
 
     return ClassifierParams(
         vocab_lut=torch.as_tensor(lut, device=device),
-        twister=f32(tw.T),
+        twister=twister,
         metric=f32(mvec),
         class_coords=f32(class_coords),
         class_norms=f32(cls_norms),

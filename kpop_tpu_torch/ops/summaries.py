@@ -28,10 +28,10 @@ from typing import IO
 import numpy as np
 import torch
 
-from kpop_tpu import native
-from kpop_tpu.core.matrix import NamedMatrix
-from kpop_tpu.core.space import Distance, summarize_distance_row
-from kpop_tpu.utils.progress import Progress
+from .. import native
+from ..core.matrix import NamedMatrix
+from ..core.space import Distance, summarize_distance_row
+from ..utils.progress import Progress
 
 from .. import _build
 from ..config import device
