@@ -20,22 +20,27 @@ prints no result.  It imports nothing of JAX or of the JAX package
    k=16), on ties and signed zeros, on rows of 367,987 and with k = N; the
    CA Gram on a seeded Poisson u8 table of the headline shape (367,987 x
    512) against its plain version and a numpy float64 Gram, with one cuBLAS
-   DGEMM as its yardstick;
+   DGEMM as its yardstick; the embedding bag also against a float64 bag
+   of the same f32 twister, with the known windows and distinct hit rows
+   of its batch, and at 130 read sets (a full group of 128 and a partial
+   one) against both;
 4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
    tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
    at 1x coverage; vocabulary ~368k, d=511), trained on the card
    (``ca_fit_sharded(phi="device")``: the wall split into masses, upload,
    Gram, eigh and phi, the fit within tests/test_dd.py's bounds of the host
-   float64 ``fit_ca``) and classified through the dense and the bag route
+   float64 ``fit_ca``, and the peak device memory of the fit that streams
+   phi to the host) and classified through the dense and the bag route
    with parameters built around the device twister: top-1 accuracy >= 0.95
-   on each, every kernel launched, distances within 1e-4 of the host float64
-   chain, and the serving rate;
-5. cli: the README quick start trained by ``bin/kpop-twist-torch --backend
-   jax`` (the device CA), then through ``bin/kpop-classify-torch`` and
-   ``bin/kpop-twistdb-torch --backend pallas -s``, 0 misclassified of 100
-   on each, the summaries within 2e-4 of ``kpop-twistdb``'s host float64
-   lines, and ``bin/kpop-countdb-torch --backend pallas --distances``
-   against ``kpop-countdb``'s host distances;
+   on each, every kernel launched, each route's device time a batch,
+   distances within 1e-4 of the host float64 chain, and the serving rate;
+5. cli: the README quick start trained by ``kpop-twist-torch`` with its
+   default backend (the device CA), then through ``bin/kpop-classify-torch``
+   and ``kpop-twistdb-torch -s``, 0 misclassified of 100 on each, the
+   summaries within 2e-4 of ``kpop-twistdb``'s host float64 lines, and
+   ``kpop-countdb-torch --distances`` against ``kpop-countdb``'s host
+   distances; the three tools run in this process without ``--backend``
+   and must launch their kernels on the card;
 6. relatedness: ``bench.py``'s relatedness flagship (100,000 queries x
    10,000 targets x 512 dims, seed 2, keep 2, batch 2048) through
    ``summarize_rowwise_device`` on the tile route (``pallas``) and the
@@ -183,6 +188,58 @@ def distances_f64(a, b, m, na, nb):
     am = a * m[None, :]
     d2 = (am * a).sum(dim=1)[:, None] + (b * b * m[None, :]).sum(dim=1)[None, :] - 2.0 * am @ b.T
     return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def bag_f64(params, codes):
+    """The embedding bag in float64 on the card, from the same f32
+    twister: the exact counts of the plain counter times the twister,
+    divided by each read set's known count."""
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    counts = pl.count_spectra_ref(params, codes).double()
+    known = counts.sum(dim=1)
+    return (counts @ params.twister.double()) / known.clamp(min=1.0)[:, None]
+
+
+def bag_errors(params, codes, what: str) -> tuple[float, float]:
+    """The bag on the card against its plain version (``BAG_RTOL``,
+    ``BAG_ATOL``) and float64 (``F64_ERR_RATIO`` of the plain version's
+    error): its max abs error to float64, and the plain version's."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    got = pl.project_reads(params, codes)
+    want = pl.project_reads_ref(params, codes)
+    exact = bag_f64(params, codes)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, rtol=BAG_RTOL, atol=BAG_ATOL):
+        raise AssertionError(
+            "embedding bag %s differs from its plain version: max abs %.3g"
+            % (what, float((got - want).abs().max()))
+        )
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((want.double() - exact).abs().max())
+    if not np.isfinite(err) or err > F64_ERR_RATIO * plain_err:
+        raise AssertionError(
+            "embedding bag %s: max abs error to float64 %.3g, plain version %.3g"
+            % (what, err, plain_err)
+        )
+    return err, plain_err
+
+
+def bag_two_groups(params, rng, L: int) -> None:
+    """The bag at 130 read sets: the kernel's passes over a full group of
+    128 and a partial one of 2, the second holding a read set of one
+    k-mer, against the plain version and float64."""
+    import torch
+
+    codes = read_like_codes(rng, 130, L)
+    codes[129, :] = 0
+    codes = torch.as_tensor(codes, device=params.twister.device)
+    err, plain_err = bag_errors(params, codes, "at [130, %d]" % L)
+    log("kernel embedding_bag at [130, %d] (two passes, the second of 2 read sets): "
+        "max abs err to float64 %.3g, plain version %.3g" % (L, err, plain_err))
 
 
 def bound(nbytes: float, flops_ms: float) -> dict:
@@ -483,14 +540,10 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     )
     del got, want
 
+    bag_err_f64, bag_plain_err_f64 = bag_errors(params, codes, "at the slice's batch")
+    bag_two_groups(params, np.random.default_rng(3), L)
     got = pl.project_reads(params, codes)
     want = pl.project_reads_ref(params, codes)
-    torch.cuda.synchronize()
-    if not torch.allclose(got, want, rtol=BAG_RTOL, atol=BAG_ATOL):
-        raise AssertionError(
-            "embedding bag differs from its plain version: max abs %.3g"
-            % float((got - want).abs().max())
-        )
     # codes and LUT read once, each twister row the reads hit read once, the
     # [B, d] output written once; an add per known window and column.  The
     # library call: F.embedding_bag over the looked-up indices, weighted by
@@ -509,15 +562,23 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     if not lib_err <= LIBRARY_RTOL * float(want.abs().max()):
         raise AssertionError(f"F.embedding_bag does not compute the bag's function: {lib_err:.3g}")
     hit = int(torch.unique(flat).numel())
+    # what a gather of one row per known window moves, against the hit
+    # rows read once
+    log("kernel embedding_bag: %d known windows hit %d distinct rows of %d; a row per "
+        "window gathers %.4g GB, the hit rows once %.4g GB (each hit row %.2fx a batch); "
+        "max abs err to float64 %.3g, plain version %.3g"
+        % (flat.numel(), hit, V, flat.numel() * 4.0 * d / 1e9, hit * 4.0 * d / 1e9,
+           flat.numel() / max(hit, 1), bag_err_f64, bag_plain_err_f64))
     rows["embedding_bag"] = dict(
         bound(codes.nbytes + params.vocab_lut.nbytes + hit * d * 4 + got.nbytes,
               float(flat.numel()) * d / F32_FLOPS * 1e3),
         library_ms=time_ms(bag_lib, reps=5),
         err=float((got - want).abs().max()),
+        err_f64=bag_err_f64, plain_err_f64=bag_plain_err_f64,
         ms=time_ms(lambda: pl.project_reads(params, codes), reps=5),
         plain_ms=time_ms(lambda: pl.project_reads_ref(params, codes), reps=3),
         shape=f"[{B}, {L}] int8 codes, k={K}, twister [{V}, {d}]",
-        tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL}",
+        tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL}; err to float64 <= {F64_ERR_RATIO:g}x the plain version's",
         source="kpop_tpu_torch/csrc/embedding_bag.cu",
         replaces="kpop_tpu/ops/pipeline.py:200",
         launch="kpop_embedding_bag", path="slice",
@@ -678,6 +739,25 @@ def serve(step, batches):
     return out
 
 
+def device_ms_by_kernel(fn) -> dict:
+    """Device time of one run of ``fn()`` in ms, summed per kernel name by
+    ``torch.profiler`` (copies included; the host ops that launched them
+    are not counted again)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            out[ev.key] = out.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    return out
+
+
 def host_chain_distances(space, twister, coords, metric_vec, seqs):
     """Host float64 golden chain: Twister.project_entries, then
     distance_rowwise against the classes."""
@@ -772,7 +852,14 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     # 1e-5, so the bounds hold the same fit with phi="host" (float64), and
     # the card's twister must be exactly that fit rounded to f32
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     coords64, inertia64, tw64, sv64 = sharded.ca_fit_sharded(table, col_weights=col_w, device=dev)
+    peak = torch.cuda.max_memory_allocated() - live
+    log("slice: device CA fit with phi on the host: peak device memory %.4g GB above the "
+        "%.4g GB live before it; a float64 twister kept on the card would be %.4g GB"
+        % (peak / 1e9, live / 1e9, tw64.size * 8 / 1e9))
     tw64 = torch.as_tensor(np.ascontiguousarray(tw64.T))
     rounded = torch.equal(phi_dev.cpu(), tw64.float())
     same = all(np.array_equal(a, b) for a, b in ((coords, coords64), (inertia, inertia64), (sv, sv64)))
@@ -821,6 +908,16 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
         if accuracy[path] < ACCURACY_GATE:
             raise AssertionError(f"{path}: accuracy {accuracy[path]} < {ACCURACY_GATE}")
 
+    # the device time of each route per batch, and its largest kernels
+    busy = {}
+    for path in ("dense", "bag"):
+        by_kernel = device_ms_by_kernel(lambda: serve(DeviceStep(params, path), batches))
+        busy[path] = sum(by_kernel.values()) / len(batches)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+        log("slice: %s route device time %.4f ms a batch of %d (torch.profiler), largest: %s"
+            % (path, busy[path], batch, ", ".join("%s %.4f" % (k[:40], v / len(batches))
+                                                   for k, v in top)))
+
     t0 = time.perf_counter()
     metric_vec = twister.metrics_vector(Metric.of_string("powers(1,1,2)"))
     want = host_chain_distances(space, twister, ca.sample_coords, metric_vec, batches[0][1])
@@ -849,14 +946,43 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
 # ---------------- phase 5: the quick start through the CLI ---------------
 
 
-def phase_cli() -> int:
+def run_default_cli(name: str, argv: list[str], want: tuple[str, ...]) -> dict:
+    """One of the port's CLIs in this process, with no --backend and
+    KPOP_PLATFORM unset (the port's default: the card): its launches, each
+    count set to 0 just before and read just after, must include ``want``."""
+    import importlib
+
+    from kpop_tpu_torch import _build
+
+    main = importlib.import_module(f"kpop_tpu_torch.cli.{name}").main
+    os.environ.pop("KPOP_PLATFORM", None)
+    for kernel in _build.LAUNCHES:
+        _build.LAUNCHES[kernel] = 0
+    if main(argv) != 0:
+        raise AssertionError(f"kpop-{name}-torch {' '.join(argv)} failed")
+    launches = dict(_build.LAUNCHES)
+    log("cli: kpop-%s-torch with the default backend, kernel launches %s"
+        % (name, json.dumps(launches)))
+    missing = [kernel for kernel in want if not launches[kernel]]
+    if missing:
+        raise AssertionError(f"kpop-{name}-torch's default backend never launched {missing}")
+    return launches
+
+
+def phase_cli() -> dict:
+    """The quick start: counted by the JAX tools, trained by
+    kpop-twist-torch, classified by kpop-classify-torch, summarized by
+    kpop-twistdb-torch -s and the class distances by kpop-countdb-torch
+    --distances.  The three relatedness and training tools run here in
+    this process with their default backend; the JAX tools give the host
+    float64 lines and distances they are held to."""
     from kpop_tpu_torch.core.matrix import KPopMatrix, MatrixType
 
     env = dict(os.environ)
     env["PATH"] = os.path.join(REPO, "bin") + os.pathsep + env.get("PATH", "")
     env["PYTHONPATH"] = REPO
     env.pop("KPOP_PLATFORM", None)  # the port's default: the card
-    script = (
+    counts = (
         "set -eo pipefail\n"
         f"{sys.executable} {REPO}/tests/data/make_clusters.py clusters-small.fasta\n"
         "for CLASS in C1 C2 C3 C4 C5 C6 C7 C8 C9 C10; do cat clusters-small.fasta |\n"
@@ -864,24 +990,41 @@ def phase_cli() -> int:
         "  kpop-count -k 5 -L -f /dev/stdin |\n"
         "  kpop-countdb -k /dev/stdin -R '~.' -A $CLASS -L $CLASS -N -D -t /dev/stdout\n"
         "done | kpop-countdb -k /dev/stdin -o Classes.5\n"
-        "kpop-twist-torch --backend jax -i Classes.5 -o Classes.5\n"
         "cat clusters-small.fasta |\n"
         "  awk '{nr=(NR-1)%4; if (nr==2) split($0,s,\"[>-]\"); if (nr==3) print \">\"s[2]\"-\"s[3]\"\\n\"$0}' > test.fasta\n"
+    )
+    serve = (
+        "set -eo pipefail\n"
         "kpop-classify-torch -T Classes.5 -t Classes.5 -f test.fasta -o Test_prediction.5\n"
         # the relatedness tools: the test set twisted once, then summarized
-        # against the classes, and the classes' spectral distances, each by
-        # the port's hand kernels and by the JAX tools' float64 host path
+        # against the classes, and the classes' spectral distances, by the
+        # JAX tools' float64 host path
         "kpop-count -k 5 -L -f test.fasta | kpop-twistdb -i T Classes.5 -k /dev/stdin -o t Test.5\n"
-        "kpop-twistdb-torch -i T Classes.5 -i t Classes.5 --backend pallas -s Test.5 Torch.5\n"
         "kpop-twistdb -i T Classes.5 -i t Classes.5 -s Test.5 Host.5\n"
-        "kpop-countdb-torch -i Classes.5 --backend pallas --distances '~.' '~.' TorchD.5\n"
         "kpop-countdb -i Classes.5 --distances '~.' '~.' HostD.5\n"
     )
+    launches = {}
     with tempfile.TemporaryDirectory() as td:
-        res = subprocess.run(["bash", "-c", script], cwd=td, env=env,
-                             capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise AssertionError("quick start failed:\n" + res.stderr[-4000:])
+        def sh(script: str, what: str) -> None:
+            res = subprocess.run(["bash", "-c", script], cwd=td, env=env,
+                                 capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"quick start ({what}) failed:\n" + res.stderr[-4000:])
+
+        def at(name: str) -> str:
+            return os.path.join(td, name)
+
+        sh(counts, "counts")
+        launches["twist"] = run_default_cli(
+            "twist", ["-i", at("Classes.5"), "-o", at("Classes.5")], ("kpop_ca_gram",))
+        sh(serve, "classify and host references")
+        launches["twistdb"] = run_default_cli(
+            "twistdb", ["-i", "T", at("Classes.5"), "-i", "t", at("Classes.5"),
+                        "-s", at("Test.5"), at("Torch.5")],
+            ("kpop_pairwise_dist", "kpop_row_digest"))
+        launches["countdb"] = run_default_cli(
+            "countdb", ["-i", at("Classes.5"), "--distances", "~.", "~.", at("TorchD.5")],
+            ("kpop_pairwise_dist",))
         lines = {}
         for name in ("Test_prediction.5", "Torch.5", "Host.5"):
             with open(os.path.join(td, name + ".KPopSummary.txt")) as f:
@@ -891,7 +1034,7 @@ def phase_cli() -> int:
             for name in ("TorchD.5", "HostD.5")
         }
     for name, tool in (("Test_prediction.5", "kpop-classify-torch"),
-                       ("Torch.5", "kpop-twistdb-torch --backend pallas -s")):
+                       ("Torch.5", "kpop-twistdb-torch -s")):
         if len(lines[name]) != 100:
             raise AssertionError(f"{tool}: {len(lines[name])} summaries, not 100")
         wrong = sum(ln.split("\t")[0].split("-")[1] != ln.split("\t")[5] for ln in lines[name])
@@ -899,7 +1042,7 @@ def phase_cli() -> int:
         if wrong:
             raise AssertionError(f"{tool}: {wrong} misclassified")
     check_summaries(lines["Torch.5"], lines["Host.5"])
-    log("cli: kpop-twistdb-torch --backend pallas -s within %g of kpop-twistdb's host "
+    log("cli: kpop-twistdb-torch -s within %g of kpop-twistdb's host "
         "summaries, same targets" % SUMMARY_BOUND)
     got, want = dmats["TorchD.5"], dmats["HostD.5"]
     # d^2 bound: the self-distances on the diagonal carry the float32
@@ -909,9 +1052,9 @@ def phase_cli() -> int:
         got.data**2, want.data**2, rtol=4e-5, atol=4e-6
     ):
         raise AssertionError(f"kpop-countdb-torch --distances: max |d^2 - host| {err2:.3g}")
-    log("cli: kpop-countdb-torch --backend pallas --distances %s: max |d^2 - host d^2| %.3g"
+    log("cli: kpop-countdb-torch --distances %s: max |d^2 - host d^2| %.3g"
         % (list(got.data.shape), err2))
-    return wrong
+    return launches
 
 
 # ---------------- phase 6: the relatedness engine ------------------------

@@ -5,9 +5,11 @@ The counterpart of ``kpop_tpu/cli/countdb.py``: the same options, actions
 and output.  Only the ``--backend`` branch of ``--distances`` differs: for
 euclidean and cosine distances it runs
 :func:`kpop_tpu_torch.ops.summaries.distance_rowwise_device` on the device
-that ``KPOP_PLATFORM`` names (``pallas``: the hand distance tile for
-euclidean; ``jax``, ``tpu`` and ``device``: the matrix-product route).
-Minkowski distances, and the default ``host``, take the float64 host path.
+that ``KPOP_PLATFORM`` names (``pallas``, the default: the hand distance
+tile for euclidean; ``jax``, ``tpu`` and ``device``: the matrix-product
+route), which raises without a card unless ``KPOP_PLATFORM=cpu``.
+Minkowski distances, which no device route computes, and ``host`` take
+the float64 host path.
 """
 
 from __future__ import annotations
@@ -126,12 +128,12 @@ def main(argv=None) -> int:
     p.opt(
         ["--backend"],
         "'host'|'jax'|'pallas'",
-        ["compute backend for --distances: float64 host numpy (exact,",
-         "default), float32 matrix product on the PyTorch device ('jax';",
-         "'tpu' and 'device' are aliases), or the hand CUDA distance tile",
-         "('pallas', euclidean)"],
+        ["compute backend for --distances: the hand CUDA distance tile",
+         "('pallas', the default; euclidean), float32 matrix product on",
+         "the PyTorch device ('jax'; 'tpu' and 'device' are aliases), or",
+         "float64 host numpy ('host', exact)"],
         lambda a: (lambda v: act(lambda st: st.update(backend=v)))(a.get()),
-        "host",
+        "pallas",
     )
 
     def add_to_distances(a: Args):
@@ -339,7 +341,7 @@ def main(argv=None) -> int:
         filter=TableFilter(),
         distance=Distance.of_string("euclidean"),
         distance_normalize=True,
-        backend="host",
+        backend="pallas",
     )
     for fn in program:
         fn(st)

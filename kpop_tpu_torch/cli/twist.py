@@ -3,10 +3,12 @@ port.
 
 The counterpart of ``kpop_tpu/cli/twist.py``: the same options and output
 (``.KPopTwister`` + ``.KPopTwisted`` binaries, and ``.KPopTwisted`` k-mer
-coordinates with ``-K``).  ``--backend host`` (the default) is the float64
-host CA; ``--backend jax`` trains on the device that ``KPOP_PLATFORM``
-names (:func:`kpop_tpu_torch.parallel.sharded.ca_fit_sharded`: the compact
-wire upload, the fused residual-Gram kernel, host float64 ``eigh``).
+coordinates with ``-K``).  ``--backend jax`` (the default) trains on the
+device that ``KPOP_PLATFORM`` names
+(:func:`kpop_tpu_torch.parallel.sharded.ca_fit_sharded`: the compact wire
+upload, the fused residual-Gram kernel, host float64 ``eigh``), and raises
+without a card unless ``KPOP_PLATFORM=cpu``; ``--backend host`` is the
+float64 host CA of the JAX tool.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def main(argv=None) -> int:
         "threshold_kmers": 0.0,
         "seed": None,
         "verbose": False,
-        "backend": "host",
+        "backend": "jax",
         "n_dims": None,
     }
     p = Parser(
@@ -74,9 +76,9 @@ def main(argv=None) -> int:
           ["RNG seed for k-mer resampling (kpop-tpu extension)"],
           lambda a: state.update(seed=int(a.get())))
     p.opt(["--backend"], "'host'|'jax'",
-          ["CA backend: float64 host numpy, or the device path (the",
-           "fused residual-Gram kernel on the card; kpop-tpu extension)"],
-          lambda a: state.update(backend=a.get()), "host")
+          ["CA backend: 'jax', the default: the fused residual-Gram kernel on",
+           "the card; or 'host': float64 host numpy (kpop-tpu extension)"],
+          lambda a: state.update(backend=a.get()), "jax")
     p.opt(["--dims", "--n-dims"], "<positive_integer>",
           ["keep only this many leading CA dimensions (kpop-tpu",
            "extension; the single-chip mode for flagship vocabularies,",

@@ -4,11 +4,12 @@ PyTorch port.
 The counterpart of ``kpop_tpu/cli/twistdb.py``: the same options, actions
 and output.  Only the ``--backend`` branches of ``-d`` and ``-s`` differ:
 they run :mod:`kpop_tpu_torch.ops.summaries` on the device that
-``KPOP_PLATFORM`` names (:func:`kpop_tpu_torch.config.device`).  ``host``
-(the default) is the float64 host path of the JAX tool; ``jax``, ``tpu``
-and ``device`` take the matrix-product route; ``pallas`` takes the hand
-distance tile for euclidean distances.  Every device route digests the
-``-s`` summaries with the hand row-digest kernel.
+``KPOP_PLATFORM`` names (:func:`kpop_tpu_torch.config.device`, which
+raises without a card unless ``KPOP_PLATFORM=cpu``).  ``pallas`` (the
+default) takes the hand distance tile for euclidean distances; ``jax``,
+``tpu`` and ``device`` take the matrix-product route; ``host`` is the
+float64 host path of the JAX tool.  Every device route digests the ``-s``
+summaries with the hand row-digest kernel.
 """
 
 from __future__ import annotations
@@ -371,14 +372,15 @@ def main(argv=None) -> int:
           "2")
 
     p.opt(["--backend"], "'host'|'jax'|'pallas'",
-          ["compute backend for -d distances and -s summaries: float64 host",
-           "numpy (exact, default), or float32 on the PyTorch device: the",
-           "matrix-product route ('jax'; 'tpu' and 'device' are aliases) or",
-           "the hand CUDA distance tile ('pallas', euclidean only; other",
-           "distances take the matrix-product route); -s digests rows with",
-           "the hand CUDA row-digest kernel; same tie semantics"],
+          ["compute backend for -d distances and -s summaries: float32 on",
+           "the PyTorch device, by the hand CUDA distance tile ('pallas',",
+           "the default; euclidean only, other distances take the",
+           "matrix-product route) or the matrix-product route ('jax';",
+           "'tpu' and 'device' are aliases), with -s rows digested by the",
+           "hand CUDA row-digest kernel; or float64 host numpy ('host',",
+           "exact); same tie semantics"],
           lambda a: (lambda v: act(lambda st: st.update(backend=v)))(a.get()),
-          "host")
+          "pallas")
 
     def add_summary_from_twisted(a: Args):
         prefix_in = a.get()
@@ -478,7 +480,7 @@ def main(argv=None) -> int:
         splits_keep_at_most=10000,
         splits_seed=None,
         summary_keep_at_most=2,
-        backend="host",
+        backend="pallas",
         precision_tables=15,
         precision_splits=10,
     )

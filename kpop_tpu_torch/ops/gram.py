@@ -85,8 +85,11 @@ def factors(alpha, u, beta, v) -> tuple[torch.Tensor, torch.Tensor]:
 
 def residual(x, alpha, u, beta, v) -> torch.Tensor:
     """The standardized residual ``x alpha beta - u v`` of rows of ``x``, in
-    float64 (plain PyTorch)."""
-    return x.double() * alpha[:, None] * beta[None, :] - u[:, None] * v[None, :]
+    float64 (plain PyTorch), scaled in place: it needs one temporary of its
+    own size (the outer product ``u v``) beside itself."""
+    S = x.to(torch.float64, copy=True)
+    S.mul_(alpha[:, None]).mul_(beta[None, :])
+    return S.sub_(torch.outer(u, v))
 
 
 def residual_gram_ref(x, alpha, u, beta, v, block_bytes: int = 64 << 20) -> torch.Tensor:

@@ -34,9 +34,22 @@ from ..core.twister import Twister
 
 from .. import _build
 from .encode import lut_k_max, window_codes_batch
-from .pairwise import distance_tile, row_norms
+from .pairwise import H100_SMS, _sm_count, distance_tile, row_norms
 
 ROADMAP_NOTE = "not ported to kpop_tpu_torch yet (ROADMAP.md, queue 1)"
+
+#: twister columns per accumulate block of the embedding-bag kernel
+#: (csrc/embedding_bag.cu), 4 a lane
+BAG_COLS = 128
+#: read sets per pass of the bag kernel: 8 bits of its keys
+BAG_GROUP = 128
+#: vocabulary rows per tile of the bag kernel: its R, a hit mask of 4
+#: words
+BAG_TILE_ROWS = 128
+#: counters of the bag kernel's key list a tile: 8 buckets of 16 rows, 4
+#: counters a bucket
+BAG_COUNTERS = 32
+_INT_MAX = 2**31 - 1
 
 
 class ClassifierParams(nn.Module):
@@ -289,12 +302,43 @@ def project_reads_ref(
     return twisted
 
 
+def bag_workspace_ints(B: int, L: int, k: int, V: int) -> int:
+    """int32 workspace of the bag kernel: with ``T = ceil(V /
+    BAG_TILE_ROWS)`` tiles and ``N = min(B, BAG_GROUP) (L - k + 1)``
+    windows a pass, tile meta,
+    hit masks and headers (``BAG_GROUP + 16`` ints a tile), the
+    ``BAG_COUNTERS`` counters of each tile, 2 N + 2 of entries (the
+    windows' rows first), N keys, 3 T + 1 of the tiles that hold keys, their
+    key offsets and the tiles' totals, and ``BAG_GROUP + 1`` counts.  The
+    same layout as the kernel's."""
+    T = -(-V // BAG_TILE_ROWS)
+    N = min(B, BAG_GROUP) * (L - k + 1)
+    return (BAG_GROUP + 19 + BAG_COUNTERS) * T + 3 * N + BAG_GROUP + 4
+
+
+def bag_plan(V: int, d: int, n_sm: int = H100_SMS) -> int:
+    """The vocabulary slices ``S`` of the bag kernel, so that ``S`` times
+    the ``ceil(d / BAG_COLS)`` column blocks fill the ``n_sm`` SMs once (an
+    accumulate block takes an SM's shared memory; at least 1 slice, at
+    most one a tile of ``BAG_TILE_ROWS`` rows, and within CUDA's
+    grid.y)."""
+    col_blocks = -(-d // BAG_COLS)
+    return max(1, min(-(-V // BAG_TILE_ROWS), 65535, n_sm // col_blocks))
+
+
 def project_reads(
     params: ClassifierParams, base_codes: torch.Tensor, normalize: bool = True
 ) -> torch.Tensor:
     """Reads -> twisted coordinates ``[B, d]`` without spectra:
     ``twisted[b] = sum_w twister[lut[code_w]] / n_known`` (unknown k-mers
-    drop out, duplicates accumulate; lib/Twister.ml:146-188)."""
+    drop out, duplicates accumulate; lib/Twister.ml:146-188).
+
+    On a card, ``csrc/embedding_bag.cu``: each pass of ``BAG_GROUP`` read
+    sets buckets its known windows by vocabulary tile, turns each tile
+    into exact integer counts, reads each hit twister row once per column
+    block and adds count x row to the read sets that hit it; the
+    :func:`bag_plan` slices of the vocabulary are summed in order.  The
+    result is the same from run to run."""
     B, L = _check_codes("project_reads", params, base_codes)
     if base_codes.device.type == "cpu":
         return project_reads_ref(params, base_codes, normalize)
@@ -302,13 +346,28 @@ def project_reads(
         "project_reads", base_codes, params.vocab_lut, params.twister,
         dtypes=(torch.int8, torch.int32, torch.float32),
     )
+    if params.twister.data_ptr() % 16:
+        raise ValueError("project_reads: the twister must start on 16 bytes (bulk copies)")
     V, d = params.twister.shape
-    out = torch.empty((B, d), dtype=torch.float32, device=base_codes.device)
+    W = L - params.k + 1
+    Bg = min(B, BAG_GROUP)
+    # a window count is exact in an f32 entry below 2^24, and 2 Bg W
+    # entries index ints
+    if W >= 1 << 24 or 2 * Bg * W > _INT_MAX:
+        raise ValueError(
+            f"project_reads: {W} windows a read set exceed the kernel's keys"
+        )
+    S = bag_plan(V, d, _sm_count(base_codes.device))
+    dev = base_codes.device
+    iwork = torch.empty(bag_workspace_ints(B, L, params.k, V), dtype=torch.int32, device=dev)
+    fwork = torch.empty(S * Bg * d, dtype=torch.float32, device=dev)
+    out = torch.empty((B, d), dtype=torch.float32, device=dev)
     _build.launch(
         "kpop_embedding_bag",
         base_codes.data_ptr(), B, L, params.k, int(params.canonical),
         params.base, params.vocab_lut.data_ptr(), V,
-        params.twister.data_ptr(), d, int(normalize), out.data_ptr(),
+        params.twister.data_ptr(), d, int(normalize), S,
+        iwork.data_ptr(), fwork.data_ptr(), out.data_ptr(),
     )
     return out
 

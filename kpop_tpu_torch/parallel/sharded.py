@@ -19,7 +19,9 @@ does what those functions compute in float64, without the limbs:
   package's sign and inertia conventions (:func:`_factor_gram_host`);
 - phi = ``(S V / sv) rs`` in row blocks: S rebuilt in float64 by the plain
   function, a float64 ``torch.matmul`` with ``V / sv``; with
-  ``phi="device"`` the twister stays on the device as ``[K, d]`` f32.
+  ``phi="device"`` the twister stays on the device as ``[K, d]`` f32, with
+  ``phi="host"`` each float64 block is copied to the host as it is made
+  (the JAX package brings phi to the host block by block too).
 
 ``precision="fast"`` is the JAX ``_ca_math``: everything on the device in
 f32, ``torch.linalg.eigh`` included.  The HBM-budgeted streamed path
@@ -257,8 +259,11 @@ def ca_fit_sharded(
     column vector so that an integer table keeps its compact wire.
 
     ``hbm_bytes``: device residency budget (default :func:`_hbm_budget`;
-    0 disables it).  A fit whose resident table and twister exceed it
-    raises ``NotImplementedError``: the streamed path is not ported yet.
+    0 disables it): the wire table, plus the f32 twister with
+    ``phi="device"`` or, with ``phi="host"``, two blocks of S's size (a
+    block of S and the outer product it subtracts while it is made) and two
+    phi blocks (the one being made and the one in copy).  A fit whose resident footprint exceeds it raises
+    ``NotImplementedError``: the streamed path is not ported yet.
     ``verbose`` prints the phase times to stderr.
     """
     from ..config import device as default_device
@@ -297,9 +302,14 @@ def ca_fit_sharded(
         compact, kind = np.asarray(N, dtype=np.float64), "f64"
     else:
         alpha = rs
-    out_dt = torch.float32 if phi == "device" else torch.float64
+    # phi's f64 row blocks of S, at most block_bytes each
+    step = max(1, block_bytes // max(1, ns * 8))
     budget = hbm_bytes if hbm_bytes is not None else _hbm_budget(device)
-    resident = nk * (ns * compact.itemsize + d * out_dt.itemsize)
+    resident = nk * ns * compact.itemsize
+    if phi == "device":
+        resident += nk * d * 4
+    else:  # S and its outer product, the phi block being made and the one in copy
+        resident += min(step, nk) * (2 * ns + 2 * d) * 8
     if budget and resident > budget:
         raise NotImplementedError(
             f"ca_fit_sharded: the resident table and twister need {resident} "
@@ -323,13 +333,57 @@ def ca_fit_sharded(
     # phi = (S V / sv) rs in row blocks of at most block_bytes of f64 S
     Vs = up(V / sv_safe[None, :])
     rs_d = up(rs)
-    tw = torch.empty((nk, d), dtype=out_dt, device=device)
-    step = max(1, block_bytes // max(1, ns * 8))
-    for i in range(0, nk, step):
-        j = min(nk, i + step)
+
+    def phi_block(i: int, j: int) -> torch.Tensor:
         S = gram.residual(x[i:j], alpha_d[i:j], u_d[i:j], beta_d, v_d)
-        tw[i:j] = (S @ Vs) * rs_d[i:j, None]
-    if phi == "host":
-        tw = tw.cpu().numpy().T
+        # scaled in place: no third [rows, d] block beside the budget's two
+        return torch.matmul(S, Vs).mul_(rs_d[i:j, None])
+
+    if phi == "device":
+        tw = torch.empty((nk, d), dtype=torch.float32, device=device)
+        for i in range(0, nk, step):
+            tw[i : i + step] = phi_block(i, min(nk, i + step))
+    else:
+        tw = _blocks_to_host(phi_block, nk, d, step, device).T
     tm.mark("phi")
     return sample_coords, inertia, tw, sv
+
+
+def _blocks_to_host(make_block, nk: int, d: int, step: int,
+                    device: torch.device) -> np.ndarray:
+    """The ``[nk, d]`` float64 rows ``make_block(i, j)`` for row blocks of
+    ``step``, gathered on the host as they are made.  On a card each block
+    is copied on a side stream into one of two pinned staging buffers, so
+    the copy of a block overlaps the making of the next; the host copies a
+    buffer out only when it is needed again.  A device block lives until
+    its copy is done."""
+    out = np.empty((nk, d), dtype=np.float64)
+    if device.type != "cuda":
+        for i in range(0, nk, step):
+            out[i : i + step] = make_block(i, min(nk, i + step)).numpy()
+        return out
+    rows = min(step, nk)
+    staging = [torch.empty((rows, d), dtype=torch.float64, pin_memory=True) for _ in range(2)]
+    copier = torch.cuda.Stream(device)
+    pending: list = [None, None]  # per buffer: (event, i, j, device block)
+
+    def drain(slot: int) -> None:
+        if pending[slot] is not None:
+            done, i, j, _ = pending[slot]
+            done.synchronize()
+            out[i:j] = staging[slot][: j - i].numpy()
+            pending[slot] = None
+
+    for n, i in enumerate(range(0, nk, step)):
+        j, slot = min(nk, i + step), n % 2
+        drain(slot)
+        block = make_block(i, j)
+        copier.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(copier):
+            staging[slot][: j - i].copy_(block, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(copier)
+        pending[slot] = (done, i, j, block)
+    for slot in (0, 1):
+        drain(slot)
+    return out

@@ -1,0 +1,219 @@
+"""The embedding-bag kernel of kpop_tpu_torch (csrc/embedding_bag.cu),
+emulated on the CPU stage by stage, against the plain version
+project_reads_ref and the JAX package's project_reads.
+
+The kernel runs only on the card.  Its order is emulated here: read sets in
+groups of BAG_GROUP; known windows bucketed by vocabulary tile of R rows
+(the kernel's BAG_COUNTERS counters a tile and its atomic slot claims leave
+any order within a tile, so the keys are shuffled there); the tiles that
+hold keys cut into S slices of near-equal keys plus tiles; per tile exact
+integer counts, rows walked in index order and count x row (one f32
+product, one f32 add) added to each read set that hit the row; the
+slices summed in order, then divided by the known count.  R is the
+package's BAG_TILE_ROWS and S comes from its own plan, bag_plan.
+
+Tolerance: rtol 1e-5, atol 1e-6 against the plain version and JAX (the
+bag's bound in chip_smoke.py): count x row rounds once where a plain sum
+adds the row count times, and the slices sum in another order.  The
+integer counts equal count_spectra_ref exactly."""
+
+import numpy as np
+import pytest
+import torch
+
+from kpop_tpu.ops import pipeline as jp
+from kpop_tpu_torch.ops import pipeline as tp
+from kpop_tpu_torch.ops.pairwise import H100_SMS
+
+from test_torch_pipeline import both_params, codes_of, trained  # noqa: F401
+
+BAG_RTOL, BAG_ATOL = 1e-5, 1e-6
+K = 5
+
+
+def slice_starts(kbase, S):
+    """The kernel's slices of the n tiles that hold keys (key offsets
+    ``kbase``, n + 1 of them): slice s starts at the least j with
+    (kbase[j] + M j) S >= s (N + M n), N the keys and M their mean a tile."""
+    n, N = len(kbase) - 1, int(kbase[-1])
+    M = max(1, N // n) if n else 1
+    cost = np.asarray(kbase, dtype=np.int64) + M * np.arange(n + 1)
+    starts = np.searchsorted(cost * S, np.arange(S + 1) * (N + M * n), side="left")
+    assert starts[0] == 0 and starts[-1] == n and (np.diff(starts) >= 0).all()
+    return starts
+
+
+def emulate_bag(params, codes, normalize=True, n_sm=H100_SMS, seed=0):
+    """The kernel's stages in numpy: returns the ``[B, d]`` bag and the
+    ``[B, V]`` integer counts of its tiles.  ``seed`` shuffles the keys
+    within each tile, as the scatter's atomics may."""
+    rng = np.random.default_rng(seed)
+    V, d = params.twister.shape
+    tw = params.twister.numpy()
+    idx = tp.vocab_lookup(params, codes).numpy()
+    B = idx.shape[0]
+    R, S = tp.BAG_TILE_ROWS, tp.bag_plan(V, d, n_sm)
+    T = -(-V // R)
+    out = np.empty((B, d), dtype=np.float32)
+    counts = np.zeros((B, V), dtype=np.int64)
+    for g0 in range(0, B, tp.BAG_GROUP):
+        grp = idx[g0 : g0 + tp.BAG_GROUP]
+        Bg = grp.shape[0]
+        # 1. bucket: tile histogram, exclusive offsets, keys by tile
+        b_of, w_of = np.nonzero(grp < V)
+        rows = grp[b_of, w_of]
+        perm = rng.permutation(len(rows))
+        order = perm[np.argsort(rows[perm] // R, kind="stable")]
+        rows, b_of = rows[order], b_of[order]
+        off = np.concatenate([[0], np.cumsum(np.bincount(rows // R, minlength=T))])
+        N = int(off[-1])
+        # the tiles that hold keys, their key offsets and the slices
+        nz = np.nonzero(np.diff(off))[0]
+        starts = slice_starts(np.append(off[nz], N), S)
+        # 2. accumulate each slice
+        ws = np.zeros((S, Bg, d), dtype=np.float32)
+        for s in range(S):
+            acc = ws[s]
+            for t in nz[starts[s] : starts[s + 1]]:
+                k0, k1 = off[t], off[t + 1]
+                cnt = np.zeros((R, Bg), dtype=np.int64)
+                np.add.at(cnt, (rows[k0:k1] - t * R, b_of[k0:k1]), 1)
+                n_rows = min(R, V - t * R)
+                counts[g0 : g0 + Bg, t * R : t * R + n_rows] += cnt[:n_rows].T
+                for r in range(R):
+                    bs = np.nonzero(cnt[r])[0]
+                    if len(bs):
+                        x = cnt[r, bs].astype(np.float32)[:, None] * tw[t * R + r][None, :]
+                        acc[bs] = acc[bs] + x
+        # 3. the slices in order, then the known counts
+        total = ws[0].copy()
+        for s in range(1, S):
+            total = total + ws[s]
+        if normalize:
+            known = (grp < V).sum(axis=1)
+            total = total / np.maximum(known, 1).astype(np.float32)[:, None]
+        out[g0 : g0 + Bg] = total
+    return out, counts
+
+
+def random_params(seed, V, d, canonical=True):
+    """Torch and JAX parameters of a random k=5 vocabulary of V k-mers
+    that holds the all-A k-mer."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    n = 4**K
+    perm = rng.permutation(n)
+    perm[[0, int(np.nonzero(perm == 0)[0][0])]] = perm[[int(np.nonzero(perm == 0)[0][0]), 0]]
+    lut = np.full(n + 1, V, dtype=np.int32)
+    lut[perm[:V]] = np.arange(V, dtype=np.int32)
+    tw = rng.standard_normal((V, d)).astype(np.float32)
+    metric = np.full(d, 1.0 / d, dtype=np.float32)
+    coords = rng.standard_normal((3, d)).astype(np.float32)
+    norms = np.ones(3, dtype=np.float32)
+    arrays = dict(vocab_lut=lut, twister=tw, metric=metric, class_coords=coords, class_norms=norms)
+    tparams = tp.ClassifierParams(*(torch.from_numpy(a) for a in arrays.values()), k=K, canonical=canonical)
+    jparams = jp.ClassifierParams(**{k: jnp.asarray(a) for k, a in arrays.items()}, k=K, canonical=canonical)
+    return tparams, jparams
+
+
+def read_like_codes(seed, B, L):
+    """[B, L] int8 bases shaped like joined 150 bp reads (chip_smoke.py's
+    phase 3 inputs at a small size): -1 breaks every 151 bases, ragged -1
+    tails, a row repeating one 10-mer pattern and a row of one k-mer."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(B, L), dtype=np.int8)
+    codes[:, 150::151] = -1
+    for i in range(B):
+        codes[i, L - int(rng.integers(0, L // 3)) :] = -1
+    codes[0] = np.tile(rng.integers(0, 4, size=10, dtype=np.int8), L // 10 + 1)[:L]
+    codes[1] = 0
+    return codes
+
+
+def check(tparams, jparams, codes, normalize, n_sm):
+    import jax.numpy as jnp
+
+    tc = torch.from_numpy(codes)
+    got, counts = emulate_bag(tparams, tc, normalize, n_sm)
+    np.testing.assert_array_equal(counts, tp.count_spectra_ref(tparams, tc).numpy())
+    want = tp.project_reads_ref(tparams, tc, normalize).numpy()
+    jax_bag = np.asarray(jp.project_reads(jparams, jnp.asarray(codes), normalize=normalize, chunk=64))
+    # an unnormalized sum of n terms carries n times the rounding of their
+    # mean: it is held to the bound after the division by n
+    scale = 1.0 if normalize else np.maximum(counts.sum(axis=1), 1)[:, None]
+    for ref in (want, jax_bag):
+        np.testing.assert_allclose(got / scale, ref / scale, rtol=BAG_RTOL, atol=BAG_ATOL)
+    return got
+
+
+@pytest.mark.parametrize("n_sm", [1, 16, H100_SMS])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_emulated_bag_on_the_trained_fixture(trained, normalize, n_sm):  # noqa: F811
+    jparams, tparams = both_params(trained)
+    check(tparams, jparams, codes_of(trained), normalize, n_sm)
+
+
+@pytest.mark.parametrize("n_sm", [1, 16, H100_SMS])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_emulated_bag_on_read_like_codes(normalize, n_sm):
+    """Two groups of read sets (130 > BAG_GROUP), breaks, ragged tails and
+    a row of one k-mer repeated about L times."""
+    tparams, jparams = random_params(7, V=600, d=37)
+    codes = read_like_codes(8, B=130, L=460)
+    got = check(tparams, jparams, codes, normalize, n_sm)
+    if normalize:  # one k-mer: count x row / count is the row itself
+        np.testing.assert_allclose(got[1], tparams.twister[tparams.vocab_lut[0]].numpy(), rtol=1e-6)
+
+
+def test_emulated_bag_does_not_depend_on_the_key_order():
+    """Integer counts do not see the order in which the scatter wrote the
+    keys: two orders give the same bits."""
+    tparams, _ = random_params(9, V=300, d=20)
+    codes = torch.from_numpy(read_like_codes(10, B=12, L=300))
+    a, _ = emulate_bag(tparams, codes, n_sm=16, seed=1)
+    b, _ = emulate_bag(tparams, codes, n_sm=16, seed=2)
+    assert np.array_equal(a, b)
+
+
+def test_slices_spread_a_stretch_of_sparse_tiles():
+    """Dense tiles first, then a long stretch of tiles of one key each (a
+    vocabulary's rarely hit k-mers, as phase 4's real reads hit them): a
+    split by keys alone puts the whole stretch in one slice; the kernel's
+    split by keys plus tiles keeps every slice within twice its share."""
+    keys = np.array([5000] * 60 + [1] * 2000)
+    kbase = np.concatenate([[0], np.cumsum(keys)])
+    S = 33
+    starts = slice_starts(kbase, S)
+    tiles = np.diff(starts)
+    cost = np.diff(kbase[starts]) + keys.sum() // len(keys) * tiles
+    assert cost.max() <= 2 * cost.sum() / S
+    by_keys = np.searchsorted(kbase * S, np.arange(S + 1) * kbase[-1], side="left")
+    assert np.diff(by_keys).max() >= 2000 > 2 * tiles.max()
+
+
+def test_bag_plan_at_the_headline_batch():
+    """368k rows x 511 columns: tiles of 128 rows (a hit mask of 4 words),
+    and slices x 4 column blocks fill the card's SMs once, an accumulate
+    block an SM."""
+    assert tp.BAG_TILE_ROWS == 128
+    assert tp.bag_plan(367_987, 511) * 4 == H100_SMS
+
+
+@pytest.mark.parametrize("V,d,n_sm", [
+    (10, 511, 132),         # fewer tiles than the card's blocks
+    (367_987, 70_000, 132),  # more column blocks than blocks
+    (16_777_216, 1, 100_000),  # within grid.y
+    (1000, 200, 1),
+])
+def test_bag_plan_limits(V, d, n_sm):
+    S = tp.bag_plan(V, d, n_sm)
+    assert 1 <= S <= min(-(-V // tp.BAG_TILE_ROWS), 65535)
+
+
+def test_bag_workspace_holds_each_pass():
+    """The int32 workspace grows with the windows of one pass, not with
+    the batch: 3 ints a window of up to BAG_GROUP read sets."""
+    one = tp.bag_workspace_ints(tp.BAG_GROUP, 1000, 10, 5000)
+    assert tp.bag_workspace_ints(3 * tp.BAG_GROUP, 1000, 10, 5000) == one
+    assert one - tp.bag_workspace_ints(tp.BAG_GROUP - 1, 1000, 10, 5000) == 3 * 991

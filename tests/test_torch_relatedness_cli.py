@@ -125,7 +125,7 @@ def test_countdb_distances_match_jax_cli(db, backend):
 
 
 def test_host_backend_is_the_jax_tools_output(db):
-    sh("kpop-twistdb-torch -i T TW -i t TW -s TW T_host -d TW -o d TD_host", db)
+    sh("kpop-twistdb-torch -i T TW -i t TW --backend host -s TW T_host -d TW -o d TD_host", db)
     assert (db / "T_host.KPopSummary.txt").read_bytes() == (
         db / "HOST.KPopSummary.txt"
     ).read_bytes()

@@ -52,8 +52,8 @@ def trained(tmp_path_factory):
     )
     sh("kpop-twist -i Classes -o Host -K HostK", td)
     sh("kpop-twist --backend jax -i Classes -o Jax -K JaxK", td)
-    sh("kpop-twist-torch -i Classes -o TorchHost -K TorchHostK", td)
-    sh("kpop-twist-torch --backend jax -i Classes -o Torch -K TorchK", td)
+    sh("kpop-twist-torch --backend host -i Classes -o TorchHost -K TorchHostK", td)
+    sh("kpop-twist-torch -i Classes -o Torch -K TorchK", td)  # the default: jax
     sh(
         "cat clusters-small.fasta | "
         "awk '{nr=(NR-1)%4; if (nr==2) split($0,s,\"[>-]\"); if (nr==3) print \">\"s[2]\"-\"s[3]\"\\n\"$0}' "
