@@ -16,8 +16,13 @@ prints no result.  It imports nothing of JAX or of the JAX package
    the distance tile also at phase 6's relatedness batch (2048 x 10,000 x
    512, and its last batch of 1,696), on raw spectra (512 x 512 x 367,987)
    and, for timing, at 4096 x 4096 x 512, each against float64 on the card
-   too; the row digest on the relatedness batch's tile (2048 x 10,000,
-   k=16), on ties and signed zeros, on rows of 367,987 and with k = N; the
+   too; the count also at 130 read sets, at a vocabulary of 100,003 and on a
+   protein LUT (base 20, k = 5), each torch.equal to its plain version and
+   to a second call; the row digest on the relatedness batch's tile (2048 x
+   10,000, k=16, k = DIGEST_K_MAX and DIGEST_K_MAX + 1), on ties and signed
+   zeros, on rows of 367,987 and with k = N, each the same on a second
+   call; for the count and the digest each input's kernel time alone and
+   its wrapper's; the
    CA Gram on a seeded Poisson u8 table of the headline shape (367,987 x
    512) against its plain version and a numpy float64 Gram, with one cuBLAS
    DGEMM as its yardstick; the embedding bag also against a float64 bag
@@ -132,6 +137,24 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_alone_ms(name: str, *args, reps: int = 10) -> float:
+    """Median device time of one kernel entry point alone, called on
+    prepared buffers with no wrapper around it (its launches are not
+    counted in ``_build.LAUNCHES``)."""
+    import torch
+
+    from kpop_tpu_torch import _build
+
+    fn = getattr(_build.lib(), name)
+
+    def run():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+    return time_ms(run, reps=reps)
 
 
 # ---------------- phase 3: kernels against their plain versions ----------
@@ -356,10 +379,13 @@ def max_rel(got, want) -> float:
 def digest_blocks(dev, flagship):
     """Distance blocks for the row digest, made on the card: the flagship
     batch (the tile of 2048 queries against 10,000 targets that phase 3
-    checked, k=16), a block of repeated values with zeros of both signs,
-    rows wider than shared memory (raw-spectra width), and k = N
-    (``--summary-keep-at-most all``)."""
+    checked, k=16, and at k = DIGEST_K_MAX, the most the kernel orders
+    itself, and one above it), a block of repeated values with zeros of
+    both signs, rows wider than shared memory (raw-spectra width), and k =
+    N (``--summary-keep-at-most all``)."""
     import torch
+
+    from kpop_tpu_torch.ops.summaries import DIGEST_K_MAX
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -370,6 +396,8 @@ def digest_blocks(dev, flagship):
     keep_all = torch.rand((64, 2000), generator=gen, device=dev)
     return [
         (f"[{DIGEST_B}, {DIGEST_N}] k={DIGEST_K}", flagship, DIGEST_K),
+        (f"[{DIGEST_B}, {DIGEST_N}] k={DIGEST_K_MAX}", flagship, DIGEST_K_MAX),
+        (f"[{DIGEST_B}, {DIGEST_N}] k={DIGEST_K_MAX + 1}", flagship, DIGEST_K_MAX + 1),
         (f"[256, {DIGEST_N}] ties and +-0, k={DIGEST_K}", ties, DIGEST_K),
         (f"[16, 367987] k={DIGEST_K}", wide, DIGEST_K),
         ("[64, 2000] k=N", keep_all, 2000),
@@ -389,6 +417,7 @@ def digest_row(dev, flagship) -> dict:
     errs = []
     for shape, dmat, k in blocks:
         (stats, top, idx), (rstats, rtop, ridx) = sm.digest_batch(dmat, k), sm.digest_batch_ref(dmat, k)
+        again = sm.digest_batch(dmat, k)
         d64 = dmat.double()
         moments64 = torch.stack([d64.mean(dim=1), d64.std(dim=1)], dim=1)
         torch.cuda.synchronize()
@@ -397,6 +426,7 @@ def digest_row(dev, flagship) -> dict:
             "top values": torch.equal(top, rtop),
             "top columns": torch.equal(idx, ridx),
             "+0.0 zeros": not bool(torch.signbit(top[top == 0]).any()),
+            "same on a second call": all(torch.equal(a, b) for a, b in zip((stats, top, idx), again)),
         }
         rel_plain = max_rel(stats[:, :2], rstats[:, :2])
         rel_f64 = max_rel(stats[:, :2], moments64)
@@ -406,8 +436,14 @@ def digest_row(dev, flagship) -> dict:
                 "rel %.3g to plain, %.3g to float64" % (shape, exact, rel_plain, rel_f64)
             )
         errs.append(float((stats - rstats).abs().max()))
+        B, N = dmat.shape
+        alone = kernel_alone_ms("kpop_row_digest", dmat.data_ptr(), B, N, k, stats.data_ptr(),
+                                top.data_ptr(), idx.data_ptr())
+        wrapper = time_ms(lambda: sm.digest_batch(dmat, k))
         log("kernel row_digest at %s: exact %s; mean/std rel %.3g to plain, %.3g to "
-            "float64" % (shape, sorted(exact), rel_plain, rel_f64))
+            "float64; kernel alone %.4f ms, wrapper %.4f ms"
+            % (shape, sorted(exact), rel_plain, rel_f64, alone, wrapper))
+        del again
     shape, dmat, k = blocks[0]
     # the block read once, the stats and the k smallest values and columns
     # written once; 2 B N operations for the moments (float32 rate)
@@ -504,6 +540,82 @@ def gram_row(dev) -> dict:
     return row
 
 
+def count_check(params, codes, what: str):
+    """The count on the card torch.equal to its plain version and to
+    itself on a second call; logs the wrapper's time and the kernels'
+    alone.  Returns the spectra."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    got = pl.count_spectra(params, codes)
+    again = pl.count_spectra(params, codes)
+    want = pl.count_spectra_ref(params, codes)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        raise AssertionError(
+            "count_spectra at %s differs from its plain version at %d cells, from itself at %d"
+            % (what, int((got != want).sum()), int((got != again).sum())))
+    B, L = codes.shape
+    W = L - params.k + 1
+    Wp = -(-W // pl.COUNT_RUN) * pl.COUNT_RUN
+    scratch = torch.empty(B * Wp, dtype=torch.int32, device=codes.device)
+    out = torch.empty_like(got)
+    alone = kernel_alone_ms(
+        "kpop_count_spectra", codes.data_ptr(), B, L, params.k, int(params.canonical),
+        params.base, params.vocab_lut.data_ptr(), params.n_vocab, scratch.data_ptr(),
+        out.data_ptr())
+    wrapper = time_ms(lambda: pl.count_spectra(params, codes))
+    bits, cells, slices = pl.count_plan(W, params.n_vocab)
+    log("kernel count_spectra at %s: %s (plain and a second call); %d slices of %d u%d "
+        "counters; kernels alone %.4f ms, wrapper %.4f ms"
+        % (what, COUNT_TOL, slices, cells, bits, alone, wrapper))
+    del again, want, scratch, out
+    return got
+
+
+def count_blocks(dev, rng, L: int) -> dict:
+    """More count inputs: 130 read sets (the walkers' last pass partial), a
+    vocabulary of 100,003 k-mers (not a multiple of a slice, its last row
+    hit by a read set of one k-mer), and a protein LUT (base 20, k = 5,
+    200,000 k-mers)."""
+    import torch
+
+    from kpop_tpu_torch.ops.pipeline import ClassifierParams
+
+    def params_of(lut, V, k, canonical, base):
+        z = torch.zeros(4, dtype=torch.float32, device=dev)
+        return ClassifierParams(torch.as_tensor(lut, device=dev),
+                                torch.zeros((V, 4), dtype=torch.float32, device=dev), z,
+                                torch.zeros((1, 4), dtype=torch.float32, device=dev),
+                                torch.ones(1, dtype=torch.float32, device=dev),
+                                k=k, canonical=canonical, base=base)
+
+    def lut_of(n, V):
+        lut = np.full(n + 1, V, dtype=np.int32)
+        perm = rng.permutation(n)
+        perm = np.concatenate([perm[perm != 0][: V - 1], [0]])  # all-zero k-mer: row V - 1
+        lut[perm] = np.arange(V, dtype=np.int32)
+        return lut
+
+    out = {}
+    V = 367_987
+    out[f"[130, {L}], V={V}"] = (
+        params_of(lut_of(4**K, V), V, K, True, 4),
+        torch.as_tensor(read_like_codes(rng, 130, L), device=dev))
+    V = 100_003
+    out[f"[128, {L}], V={V}"] = (
+        params_of(lut_of(4**K, V), V, K, True, 4),
+        torch.as_tensor(read_like_codes(rng, 128, L), device=dev))
+    V, kp = 200_000, 5
+    codes = rng.integers(0, 20, size=(128, 10_000), dtype=np.int8)
+    codes[:, 100::101] = -1
+    codes[1, :] = 0
+    out[f"protein [128, 10000], base 20, k={kp}, V={V}"] = (
+        params_of(lut_of(20**kp, V), V, kp, False, 20), torch.as_tensor(codes, device=dev))
+    return out
+
+
 def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     import torch
 
@@ -515,22 +627,18 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     codes = torch.as_tensor(read_like_codes(rng, B, L), device=dev)
     rows = {}
 
-    got = pl.count_spectra(params, codes)
-    want = pl.count_spectra_ref(params, codes)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(
-            "count_spectra differs from its plain version at %d cells"
-            % int((got != want).sum())
-        )
+    got = count_check(params, codes, f"[{B}, {L}], V={V}")
     if float(got[1].max()) < L - 300 - K:
         raise AssertionError("a repeated k-mer was not counted every time")
+    for what, (p_, c_) in count_blocks(dev, np.random.default_rng(5), L).items():
+        count_check(p_, c_, what)
+        del p_, c_
     # codes and LUT read once, the [B, V] spectra written once; one add per
     # window
     rows["count_spectra"] = dict(
         bound(codes.nbytes + params.vocab_lut.nbytes + got.nbytes, B * (L - K + 1) / F32_FLOPS * 1e3),
         library_ms=None,
-        err=float((got - want).abs().max()),
+        err=0.0,
         ms=time_ms(lambda: pl.count_spectra(params, codes)),
         plain_ms=time_ms(lambda: pl.count_spectra_ref(params, codes), reps=5),
         shape=f"[{B}, {L}] int8 codes, k={K}, V={V}", tol=COUNT_TOL,
@@ -538,7 +646,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         replaces="kpop_tpu/ops/pipeline.py:179",
         launch="kpop_count_spectra", path="slice",
     )
-    del got, want
+    del got
 
     bag_err_f64, bag_plain_err_f64 = bag_errors(params, codes, "at the slice's batch")
     bag_two_groups(params, np.random.default_rng(3), L)

@@ -41,12 +41,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # a, b, metric, na, nb, out, workspace, Q, T, D, feature slices, stream
     "kpop_pairwise_dist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # codes, B, L, k, canonical, base, lut, V, out, stream
-    "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P),
+    # codes, B, L, k, canonical, base, lut, V, index scratch, out, stream
+    "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P),
     # codes, B, L, k, canonical, base, lut, V, twister, d, normalize,
     # slices, int workspace, float workspace, out, stream
     "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P),
-    # dmat, B, N, k, stats, top, idx, stream
+    # dmat, B, N, k, stats, top, idx (int64), stream
     "kpop_row_digest": (_P, _I, _I, _I, _P, _P, _P, _P),
     # x, wire, K, ns, alpha, u, beta, v, slices, rows per slice, out,
     # workspace, stream

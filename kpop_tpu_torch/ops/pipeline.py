@@ -10,8 +10,9 @@ or, in place of the spectrum and the product, the embedding bag
 and layouts: ``[B, L]`` int8 base codes, a ``[V, d]`` twister, ``[B, C]``
 distances.
 
-Three steps are CUDA kernels on a card: counting (``csrc/count_spectra.cu``,
-window codes + LUT + scatter in one pass), the embedding bag
+Three steps are CUDA kernels on a card: counting (``csrc/count_spectra.cu``:
+each window looked up once, then the spectrum counted in shared memory and
+written once, slice by slice), the embedding bag
 (``csrc/embedding_bag.cu``) and the euclidean distance tile
 (``csrc/pairwise.cu`` through :mod:`.pairwise`).  Each wrapper runs its
 plain PyTorch version (``*_ref``) for tensors on the CPU and launches its
@@ -49,6 +50,14 @@ BAG_TILE_ROWS = 128
 #: counters of the bag kernel's key list a tile: 8 buckets of 16 rows, 4
 #: counters a bucket
 BAG_COUNTERS = 32
+#: windows a thread of the count kernel (csrc/count_spectra.cu) looks up
+#: and merges; the index scratch pads each read set to a multiple of it
+COUNT_RUN = 8
+#: shared-memory bytes of counters a block of the count kernel holds: one
+#: slice of the vocabulary
+COUNT_SLICE_BYTES = 96 * 1024
+#: most windows a read set for the count kernel's u16 counters
+COUNT_NARROW_MAX = 65535
 _INT_MAX = 2**31 - 1
 
 
@@ -255,9 +264,23 @@ def count_spectra_ref(params: ClassifierParams, base_codes: torch.Tensor) -> tor
     return out
 
 
+def count_plan(W: int, V: int) -> tuple[int, int, int]:
+    """The count kernel's plan for read sets of ``W`` windows and a
+    vocabulary of ``V``: counter bits (16 while no cell can exceed 65,535,
+    else 32), cells a slice of ``COUNT_SLICE_BYTES`` and slices."""
+    bits = 16 if W <= COUNT_NARROW_MAX else 32
+    cells = COUNT_SLICE_BYTES * 8 // bits
+    return bits, cells, -(-V // cells)
+
+
 def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.Tensor:
     """``[B, L]`` int8 base codes -> vocabulary-aligned spectra ``[B, V]``
-    f32.  Counts are exact (integers below 2^24 per cell)."""
+    f32.  Counts are exact (integers below 2^24 per cell).
+
+    On a card, ``csrc/count_spectra.cu``: each window is looked up once
+    into an int32 scratch ``[B, Wp]``, then a block a vocabulary slice
+    walks the read sets, counts each in shared memory (:func:`count_plan`)
+    and writes its slice whole, so the output needs no zeroing."""
     B, L = _check_codes("count_spectra", params, base_codes)
     if base_codes.device.type == "cpu":
         return count_spectra_ref(params, base_codes)
@@ -267,12 +290,20 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
     )
     if B > 65535:
         raise ValueError(f"count_spectra: batch {B} exceeds the kernel's grid")
+    W = L - params.k + 1
+    if W >= 1 << 24:
+        raise ValueError(
+            f"count_spectra: {W} windows a read set; a count above 2^24 is not exact in f32"
+        )
     V = params.n_vocab
-    out = torch.zeros((B, V), dtype=torch.float32, device=base_codes.device)
+    Wp = -(-W // COUNT_RUN) * COUNT_RUN
+    dev = base_codes.device
+    scratch = torch.empty(B * Wp, dtype=torch.int32, device=dev)
+    out = torch.empty((B, V), dtype=torch.float32, device=dev)
     _build.launch(
         "kpop_count_spectra",
         base_codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, params.vocab_lut.data_ptr(), V, out.data_ptr(),
+        params.base, params.vocab_lut.data_ptr(), V, scratch.data_ptr(), out.data_ptr(),
     )
     return out
 

@@ -40,9 +40,12 @@ from .pairwise import distance_tile, row_norms
 TOPK_SLACK = 14
 #: f32 elements budgeted for the blocked minkowski |b - a| broadcast
 MINK_BUDGET_ELEMS = 32 << 20  # 128 MB
-#: threads of a digest block (csrc/digest.cu); a row index stays below
-#: N + DIGEST_THREADS
+#: threads of a digest block (csrc/digest.cu) at most; a row index stays
+#: below N + DIGEST_THREADS
 DIGEST_THREADS = 512
+#: the digest kernel orders the k smallest by (value, column) itself for k
+#: up to this; a larger k is sorted by the wrapper
+DIGEST_K_MAX = 32
 _INT_MAX = 2**31 - 1
 
 
@@ -150,8 +153,10 @@ def digest_batch(dmat: torch.Tensor, k: int):
     ``stats [B, 4]`` (mean, n-1 std, upper median, MAD) and the ``k``
     smallest entries, ``top [B, k]`` with their columns ``idx [B, k]``
     (int64), in (value, column) order; zeros come out as +0.0.  On a CUDA
-    tensor it launches ``csrc/digest.cu``, then sorts the ``[B, k]`` list
-    by value (``torch.sort``, stable); on a CPU tensor it runs
+    tensor it launches ``csrc/digest.cu``, which orders the k smallest
+    itself for ``k <= DIGEST_K_MAX``; a larger k comes back as the entries
+    below the k-th value, then its ties, each group by column, and a stable
+    ``torch.sort`` by value orders it.  On a CPU tensor it runs
     :func:`digest_batch_ref`."""
     if dmat.dim() != 2:
         raise ValueError(f"digest_batch: dmat of shape {tuple(dmat.shape)}")
@@ -165,15 +170,15 @@ def digest_batch(dmat: torch.Tensor, k: int):
         raise ValueError(f"digest_batch: B={B}, N={N} exceed the kernel's int range")
     stats = torch.empty((B, 4), dtype=torch.float32, device=dmat.device)
     top = torch.empty((B, k), dtype=torch.float32, device=dmat.device)
-    idx = torch.empty((B, k), dtype=torch.int32, device=dmat.device)
+    idx = torch.empty((B, k), dtype=torch.int64, device=dmat.device)
     _build.launch(
         "kpop_row_digest",
         dmat.data_ptr(), B, N, k, stats.data_ptr(), top.data_ptr(), idx.data_ptr(),
     )
-    # the kernel lists the entries below the k-th value, then its ties, each
-    # group in column order: a stable sort by value gives (value, column)
-    top, order = torch.sort(top, dim=1, stable=True)
-    return stats, top, idx.gather(1, order).long()
+    if k > DIGEST_K_MAX:
+        top, order = torch.sort(top, dim=1, stable=True)
+        idx = idx.gather(1, order)
+    return stats, top, idx
 
 
 def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:

@@ -9,10 +9,15 @@ identical rows: median, MAD and top values equal, indices equal in (value,
 column) order, mean and std within 1e-6 relative (float32 sums taken in
 another order).
 
-The digest kernel (csrc/digest.cu) runs only on the card; its selection is
-emulated here in plain torch (order keys, radix ranks in digits of at most
-8 bits below the leading bits that a row's extreme keys share, index-order
-tie compaction) and held against torch.sort on adversarial rows."""
+The digest kernel (csrc/digest.cu) runs only on the card; its plan is
+emulated here in plain torch: the row staged in shared memory (head, bulk
+body, tail) and turned into order keys, radix ranks in digits of at most 8
+bits below the leading bits that a row's extreme keys share (histogram
+copies summed and scanned by one warp, 8 bins a lane), and the k smallest
+listed by warp chunks, then ordered by (value, column) in the kernel for
+k <= DIGEST_K_MAX or by a stable sort above it.  The emulation is held
+against torch.sort on adversarial rows and against the JAX _digest_batch
+on rows with ties, zeros of both signs and NaN."""
 
 import io
 
@@ -165,9 +170,12 @@ def test_digest_batch_checks_its_arguments():
         ts.digest_batch(torch.empty((3, 5), device="meta"), 2)
 
 
-# ---------------- emulation of csrc/digest.cu's selection ----------------
+# ---------------- emulation of csrc/digest.cu ----------------
 
-THREADS = ts.DIGEST_THREADS
+# threads of a staged-row block and of a streamed-row block, and the
+# histogram copies a selection (csrc/digest.cu's THREADS, WIDE_THREADS,
+# COPIES)
+STAGED_THREADS, THREADS, COPIES = 256, ts.DIGEST_THREADS, 1
 U32 = 0xFFFFFFFF
 SIGN = 0x80000000
 
@@ -185,11 +193,35 @@ def key_value(key: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(torch.float32)
 
 
-def radix_select(keys: torch.Tensor, rank: int, lo: int, hi: int):
+def stage_row(row: torch.Tensor, offset: int) -> torch.Tensor:
+    """The staged kernel's copy of a row that starts ``offset`` floats past
+    a 16-byte boundary: the head entries up to the boundary and the tail
+    by plain loads, the 16-byte body by one bulk copy into keys + head,
+    which lies on 16 bytes; then the keys made in place."""
+    N = row.shape[0]
+    head = min(N, (4 - offset) % 4)
+    body = (N - head) & ~3
+    pad = (4 - head) % 4
+    smem = torch.full((N + 3,), -1, dtype=torch.int64)
+    keys = smem[pad:]
+    assert (pad + head) % 4 == 0  # keys + head on 16 bytes
+    bits = row.view(torch.int32).to(torch.int64) & U32
+    keys[head : head + body] = bits[head : head + body]  # the bulk copy
+    for t in range(N - body):  # the threads below N - body
+        i = t if t < head else body + t
+        keys[i] = bits[i]
+    return order_key(keys[:N].to(torch.int32).view(torch.float32))
+
+
+def radix_select(keys: torch.Tensor, rank: int, lo: int, hi: int, nt: int = STAGED_THREADS):
     """The kernel's radix_select: (key of rank `rank`, keys below it).
     Every key lies in [lo, hi]; the leading bits the two share are skipped
-    and the bits below them taken in digits of at most 8, from the top."""
+    and the bits below them taken in digits of at most 8, from the top.
+    Entries are counted into COPIES copies by the lane that reads them (here
+    lane i % 32 of thread i % nt); one warp sums the copies and scans the
+    bins, 8 a lane."""
     assert lo <= int(keys.min()) and int(keys.max()) <= hi
+    copy = torch.arange(len(keys)) % nt % 32 % COPIES
     low = (lo ^ hi).bit_length()
     mask = U32 & ~((1 << low) - 1)
     prefix = lo & mask
@@ -198,56 +230,127 @@ def radix_select(keys: torch.Tensor, rank: int, lo: int, hi: int):
         bits = min(8, low)
         low -= bits
         digit = (1 << bits) - 1
-        cand = keys[(keys & mask) == prefix]
-        hist = torch.bincount((cand >> low) & digit, minlength=256)
-        cum = torch.cumsum(hist, 0)
-        below = cum - hist
-        hits = ((below <= r) & (r < cum)).nonzero().flatten()
-        assert len(hits) == 1
-        b = int(hits[0])
+        cand = (keys & mask) == prefix
+        hist = torch.zeros((COPIES, 256), dtype=torch.int64)
+        hist.index_put_((copy[cand], (keys[cand] >> low) & digit), torch.ones(int(cand.sum()), dtype=torch.int64), accumulate=True)
+        lanes = hist.sum(dim=0).view(32, 8)  # lane l holds bins 8l..8l+7
+        t = lanes.sum(dim=1)
+        below = torch.cumsum(t, 0) - t
+        lane = ((below <= r) & (r < below + t)).nonzero().flatten()
+        assert len(lane) == 1
+        acc = int(below[lane[0]])
+        for j in range(8):
+            if r < acc + int(lanes[lane[0], j]):
+                b = int(lane[0]) * 8 + j
+                break
+            acc += int(lanes[lane[0], j])
         prefix |= b << low
         mask |= digit << low
-        r -= int(below[b])
+        r -= acc
     return prefix, rank - r
 
 
-def emulate_digest(row: torch.Tensor, k: int):
-    """Median, MAD, and the k smallest (value, column) lists of one row,
-    selected as csrc/digest.cu selects them, then stably sorted by value."""
+def compact(keys: torch.Tensor, kth: int, n_under: int, k: int, nt: int):
+    """The kernel's compaction: each warp a contiguous chunk, ballot counts,
+    the warp offsets, then a ballot pass handing out slots.  Returns the
+    slot -> (key, column) list of k entries."""
+    N = keys.shape[0]
+    warps = nt // 32
+    ties = k - n_under
+    chunk = ((N + warps - 1) // warps + 31) & ~31
+    lt, eq = keys < kth, keys == kth
+    bounds = [(w * chunk, min(N, w * chunk + chunk)) for w in range(warps)]
+    warp_lt = [int(lt[a:b].sum()) if a < b else 0 for a, b in bounds]
+    warp_eq = [int(eq[a:b].sum()) if a < b else 0 for a, b in bounds]
+    slot_key = torch.full((k,), -1, dtype=torch.int64)
+    slot_col = torch.full((k,), -1, dtype=torch.int64)
+    for w, (a, b) in enumerate(bounds):
+        n_lt, n_eq = sum(warp_lt[:w]), sum(warp_eq[:w])
+        for base in range(a, b, 32):
+            if not (n_lt < n_under or n_eq < ties):
+                break
+            sl = slice(base, min(b, base + 32))
+            m_lt, m_eq = lt[sl], eq[sl]
+            pos_lt = torch.cumsum(m_lt.long(), 0) - m_lt.long()
+            pos_eq = torch.cumsum(m_eq.long(), 0) - m_eq.long()
+            for j in range(sl.stop - sl.start):
+                slot = -1
+                if m_lt[j]:
+                    slot = n_lt + int(pos_lt[j])
+                elif m_eq[j] and n_eq + int(pos_eq[j]) < ties:
+                    slot = n_under + n_eq + int(pos_eq[j])
+                if slot >= 0:
+                    assert slot_col[slot] == -1
+                    slot_key[slot], slot_col[slot] = keys[base + j], base + j
+            n_lt += int(m_lt.sum())
+            n_eq += int(m_eq.sum())
+    assert (slot_col >= 0).all()
+    return slot_key, slot_col
+
+
+def compact_small(keys: torch.Tensor, kth: int, n_under: int, k: int, nt: int, head: int,
+                  seed: int = 0):
+    """The kernel's one-pass compaction for k <= DIGEST_K_MAX: the entries
+    below kth take slots from a shared counter (in any order: shuffled
+    here); each warp keeps the first ties of its columns (a run of quads
+    of 4 entries from ``head`` on, warp 0 also the head entries before
+    them, the last warp also the tail after them), and the lowest columns
+    of those fill the slots from n_under on."""
+    N = keys.shape[0]
+    warps = nt // 32
+    ties = k - n_under
+    quads = (N - head) // 4
+    per_warp = ((quads + warps - 1) // warps + 31) & ~31
+    lt = torch.nonzero(keys < kth).flatten()
+    assert len(lt) == n_under
+    lt = lt[torch.randperm(len(lt), generator=torch.Generator().manual_seed(seed))]
+    eq = []
+    for w in range(warps):
+        lo = head + 4 * min(quads, w * per_warp)
+        hi = head + 4 * min(quads, (w + 1) * per_warp)
+        cols = list(range(lo, hi))
+        if w == 0:
+            cols = list(range(head)) + cols
+        if w == warps - 1:
+            cols += list(range(head + 4 * quads, N))
+        cols = torch.tensor(cols, dtype=torch.int64)
+        eq.extend(cols[keys[cols] == kth][:ties].tolist())
+    assert eq == sorted(eq)
+    slot_col = torch.cat([lt, torch.tensor(eq[:ties], dtype=torch.int64)])
+    return keys[slot_col], slot_col
+
+
+def emulate_digest(row: torch.Tensor, k: int, nt: int = STAGED_THREADS, offset: int = 0):
+    """Median, MAD, and the k smallest (value, column) lists of one row, as
+    csrc/digest.cu computes them: for k <= DIGEST_K_MAX one warp ranks the
+    list by (key, column); above it the wrapper's stable sort by value."""
     N = row.shape[0]
-    keys = order_key(row)
+    keys = stage_row(row, offset) if nt == STAGED_THREADS else order_key(row)
+    assert torch.equal(keys, order_key(row))
     lo, hi = int(keys.min()), int(keys.max())
-    median = key_value(torch.tensor(radix_select(keys, N // 2, lo, hi)[0]))
-    extremes = key_value(torch.tensor([lo, hi]))
-    mad_hi = int(order_key((extremes - median).abs()).max())
-    mad_key, _ = radix_select(order_key((row - median).abs()), N // 2, SIGN, mad_hi)
-    kth, below = radix_select(keys, k - 1, lo, hi)
-    ties = k - below
-    top = torch.empty(k, dtype=torch.float32)
-    idx = torch.full((k,), -1, dtype=torch.int64)
-    n_lt = n_eq = 0
-    for i0 in range(0, N, THREADS):
-        if not (n_lt < below or n_eq < ties):
-            break
-        kk = keys[i0 : i0 + THREADS]
-        lt, eq = kk < kth, kk == kth
-        pos_lt = torch.cumsum(lt.long(), 0) - lt.long()
-        pos_eq = torch.cumsum(eq.long(), 0) - eq.long()
-        for j in range(len(kk)):
-            slot = -1
-            if lt[j]:
-                slot = n_lt + int(pos_lt[j])
-            elif eq[j] and n_eq + int(pos_eq[j]) < ties:
-                slot = below + n_eq + int(pos_eq[j])
-            if slot >= 0:
-                assert idx[slot] == -1
-                top[slot] = key_value(kk[j])
-                idx[slot] = i0 + j
-        n_lt += int(lt.sum())
-        n_eq += int(eq.sum())
-    assert (idx >= 0).all()
-    top, order = torch.sort(top, stable=True)
-    return median, key_value(torch.tensor(mad_key)), top, idx[order]
+    (med_key, _), (kth, below) = (radix_select(keys, r, lo, hi, nt) for r in (N // 2, k - 1))
+    median = key_value(torch.tensor(med_key))
+    dev_key = lambda v: int(order_key((v - median).abs()))  # noqa: E731
+    spread = max(dev_key(key_value(torch.tensor(hi))), dev_key(key_value(torch.tensor(lo))))
+    mad_key, _ = radix_select(order_key((key_value(keys) - median).abs()), N // 2, SIGN, spread, nt)
+    mad = key_value(torch.tensor(U32 if hi == U32 else mad_key))  # a NaN in the row: NaN
+    if k <= ts.DIGEST_K_MAX:
+        head = min(N, (4 - offset) % 4) if nt == STAGED_THREADS else 0
+        slot_key, slot_col = compact_small(keys, kth, below, k, nt, head, seed=k)
+        rank = torch.tensor([
+            int(((slot_key < slot_key[i]) | ((slot_key == slot_key[i]) & (slot_col < slot_col[i]))).sum())
+            for i in range(k)
+        ], dtype=torch.int64)
+        assert sorted(rank.tolist()) == list(range(k))
+        top_key = torch.empty(k, dtype=torch.int64)
+        idx = torch.empty(k, dtype=torch.int64)
+        top_key[rank], idx[rank] = slot_key, slot_col
+        top = key_value(top_key)
+    else:
+        slot_key, slot_col = compact(keys, kth, below, k, nt)
+        top, order = torch.sort(key_value(slot_key), stable=True)
+        idx = slot_col[order]
+    return median, mad, top, idx
 
 
 def adversarial_rows():
@@ -257,6 +360,9 @@ def adversarial_rows():
     signed[::7] = 1.5
     mixed = rng.standard_normal(1500).astype(np.float32)  # negative keys too
     mixed[::50] = np.inf
+    nan = np.abs(rng.standard_normal(700)).astype(np.float32)
+    nan[::9] = np.nan
+    nan[::13] = 0.0
     return {
         "one": np.array([3.25], np.float32),
         "one_negzero": np.array([-0.0], np.float32),
@@ -265,7 +371,13 @@ def adversarial_rows():
         "duplicates": dup,
         "mixed_sign_inf": mixed,
         "ascending": np.arange(600, dtype=np.float32),
+        "nan": nan,
     }
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN equal to NaN."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
 @pytest.mark.parametrize("name", sorted(adversarial_rows()))
@@ -274,13 +386,42 @@ def test_emulated_kernel_selection_matches_sort(name):
     N = row.shape[0]
     srt, order = torch.sort(row + 0.0, stable=True)
     stats_ref, top_ref, idx_ref = ts.digest_batch_ref(row[None, :], N)
-    for k in sorted({1, min(N, 16), (N + 1) // 2, N}):
-        median, mad, top, idx = emulate_digest(row, k)
-        assert torch.equal(median, srt[N // 2])
-        assert torch.equal(mad, stats_ref[0, 3])
-        assert torch.equal(top, srt[:k]) and torch.equal(idx, order[:k])
-        assert not torch.signbit(top[top == 0]).any()
-    assert torch.equal(top_ref[0], srt) and torch.equal(idx_ref[0], order)
+    ks = {1, min(N, 16), min(N, ts.DIGEST_K_MAX), min(N, ts.DIGEST_K_MAX + 1), (N + 1) // 2, N}
+    for k in sorted(ks):
+        for nt, offset in ((STAGED_THREADS, k % 4), (THREADS, 0)):
+            median, mad, top, idx = emulate_digest(row, k, nt, offset)
+            assert same(median, srt[N // 2]) and same(mad, stats_ref[0, 3])
+            assert same(top, srt[:k]) and torch.equal(idx, order[:k])
+            assert not torch.signbit(top[top == 0]).any()
+    assert same(top_ref[0], srt) and torch.equal(idx_ref[0], order)
+
+
+def jax_rows(N: int) -> np.ndarray:
+    """Rows for the JAX comparison: digest_rows plus a row with NaN."""
+    rows = digest_rows(N)
+    nan = np.abs(np.random.default_rng(N + 1).standard_normal(N)).astype(np.float32)
+    nan[1::5] = np.nan
+    return np.concatenate([rows, nan[None, :]])
+
+
+@pytest.mark.parametrize("k_kind", ["1", "16", "K_MAX", "K_MAX+1", "N"])
+def test_emulated_kernel_matches_jax(monkeypatch, k_kind):
+    """The emulated kernel against kpop_tpu's _digest_batch on rows with
+    ties, zeros of both signs and NaN, on both sides of DIGEST_K_MAX."""
+    N = 97
+    k = {"1": 1, "16": 16, "K_MAX": ts.DIGEST_K_MAX, "K_MAX+1": ts.DIGEST_K_MAX + 1, "N": N}[k_kind]
+    rows = jax_rows(N)
+    stats_j, top_j, idx_j = jax_digest(monkeypatch, rows, k)
+    tops, idxs = [], []
+    for j, row in enumerate(torch.from_numpy(rows)):
+        median, mad, top, idx = emulate_digest(row, k, offset=j % 4)
+        np.testing.assert_array_equal(np.array([median, mad]), stats_j[j, 2:])
+        tops.append(top.numpy())
+        idxs.append(idx.numpy())
+    top, idx = np.stack(tops), np.stack(idxs)
+    assert_same_top(rows, top, idx, top_j, idx_j.astype(np.int64))
+    np.testing.assert_array_equal((top, idx), value_column_order(top, idx))
+    assert not np.signbit(top[top == 0]).any()
 
 
 def test_order_key_is_monotone_and_inverts():
