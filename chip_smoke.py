@@ -28,7 +28,12 @@ prints no result.  It imports nothing of JAX or of the JAX package
    DGEMM as its yardstick; the embedding bag also against a float64 bag
    of the same f32 twister, with the known windows and distinct hit rows
    of its batch, and at 130 read sets (a full group of 128 and a partial
-   one) against both;
+   one) against both; the wide count and the wide bag (k above the
+   dense-LUT limit) against their plain versions on the slice's batch at
+   k=16 with a vocabulary of 1,011,930 on the cuckoo hash and on the
+   sorted-limb fallback, at DNA-ds k=30 and on protein read sets at k=8,
+   the count torch.equal to its plain version and to a second call, the
+   bag within the bag's tolerances and the float64 check;
 4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
    tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
    at 1x coverage; vocabulary ~368k, d=511), trained on the card
@@ -54,7 +59,14 @@ prints no result.  It imports nothing of JAX or of the JAX package
    queries/s of both routes and of the host; then phase 4's 512 class
    spectra (367,987 k-mers) through ``distance_rowwise_device`` on the
    tile, as ``kpop-countdb --distances --backend pallas`` computes them,
-   against float64 on the card.
+   against float64 on the card;
+7. large k: phase 4's genomes counted at k=16 (vocabulary 1,011,930),
+   trained on the card (``phi="device"``), parameters built around the
+   device twister with the cuckoo hash, phase 4's held-out read sets
+   served on both routes: top-1 accuracy >= 0.95 on each, the wide count,
+   the wide bag and the tile launched, each route's device time a batch,
+   and the first batch within 1e-4 of the host float64 chain through the
+   same fit with phi on the host.
 
 The kernel table is printed as one JSON line, then the card's name and
 power limit, and last the result line
@@ -104,6 +116,11 @@ TF32_FLOPS = 495e12  # TF32 on the tensor cores
 F64_TC_FLOPS = 67e12  # FP64 tensor cores
 F64_FLOPS = 34e12  # FP64 outside the tensor cores
 SLICE_KERNELS = ("kpop_count_spectra", "kpop_embedding_bag", "kpop_pairwise_dist")
+# phase 7: phase 4's corpus counted at k = 16 (two limbs: k_hi 1, k_lo 15),
+# whose vocabulary the phase 3 wide rows take the size of
+LARGE_K = 16
+LARGE_K_VOCAB = 1_011_930
+LARGE_K_KERNELS = ("kpop_count_spectra_wide", "kpop_embedding_bag_wide", "kpop_pairwise_dist")
 # the device CA against the host float64 fit_ca: tests/test_dd.py:81-84
 CA_BOUNDS = dict(sv=1e-8, inertia=1e-8, coords=1e-6, twister=1e-5)
 
@@ -561,10 +578,10 @@ def count_check(params, codes, what: str):
     Wp = -(-W // pl.COUNT_RUN) * pl.COUNT_RUN
     scratch = torch.empty(B * Wp, dtype=torch.int32, device=codes.device)
     out = torch.empty_like(got)
+    suffix, vocab = pl.vocab_args("count_spectra", params, codes)
     alone = kernel_alone_ms(
-        "kpop_count_spectra", codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, params.vocab_lut.data_ptr(), params.n_vocab, scratch.data_ptr(),
-        out.data_ptr())
+        "kpop_count_spectra" + suffix, codes.data_ptr(), B, L, params.k, int(params.canonical),
+        params.base, *vocab, params.n_vocab, scratch.data_ptr(), out.data_ptr())
     wrapper = time_ms(lambda: pl.count_spectra(params, codes))
     bits, cells, slices = pl.count_plan(W, params.n_vocab)
     log("kernel count_spectra at %s: %s (plain and a second call); %d slices of %d u%d "
@@ -614,6 +631,149 @@ def count_blocks(dev, rng, L: int) -> dict:
     out[f"protein [128, 10000], base 20, k={kp}, V={V}"] = (
         params_of(lut_of(20**kp, V), V, kp, False, 20), torch.as_tensor(codes, device=dev))
     return out
+
+
+def wide_vocabulary(rng, codes, k: int, base: int, canonical: bool, V: int) -> np.ndarray:
+    """V distinct uint64 k-mer codes, in no order: a quarter of the valid
+    window codes of ``codes`` (so that each read set hits some of its
+    k-mers and misses others), the all-zero k-mer, and random codes."""
+    import torch
+
+    from kpop_tpu_torch.ops.encode import split_k, window_codes_batch_wide
+
+    hi, lo, ok = window_codes_batch_wide(codes, k, canonical, base)
+    full = (hi.long() * base ** split_k(k, base)[1] + lo.long())[ok]
+    seen = torch.unique(full).cpu().numpy().astype(np.uint64)
+    del hi, lo, ok, full
+    seen = seen[seen != 0]
+    picked = seen[rng.random(len(seen)) < 0.25][: V - 1]
+    extra = rng.integers(0, base**k, size=2 * V, dtype=np.uint64)
+    extra = np.setdiff1d(extra, np.concatenate([picked, [0]]).astype(np.uint64))
+    out = np.concatenate([[0], picked, rng.permutation(extra)[: V - 1 - len(picked)]]).astype(np.uint64)
+    assert len(out) == V and len(np.unique(out)) == V
+    return rng.permutation(out)
+
+
+def wide_blocks(dev, rng, codes, twister) -> dict:
+    """Large-k inputs for the wide count and bag, each with classifier
+    parameters around a random twister: phase 3's batch at k = 16 with
+    V = LARGE_K_VOCAB (the phase 7 vocabulary's size; a cuckoo table of [6,
+    2^21]) on the cuckoo hash and on the sorted-limb fallback, the same
+    batch at DNA-ds k = 30 (two 30-bit limbs, V = 367,987), and protein
+    read sets at k = 8 (base 20, V = 200,000)."""
+    import torch
+
+    from kpop_tpu_torch.core.kmers import KmerSpace
+    from kpop_tpu_torch.ops import pipeline as pl
+    from kpop_tpu_torch.ops.encode import split_k
+
+    def params_of(space, kmer_codes, tw, sorted_limbs=False):
+        if sorted_limbs:  # the fallback the builder takes when no seed converges
+            limb = np.uint64(space.base ** split_k(space.k, space.base)[1])
+            ordered = np.sort(kmer_codes)
+            vocab = dict(vocab_lut=None, vocab_hi=(ordered // limb).astype(np.int32),
+                         vocab_lo=(ordered % limb).astype(np.int32))
+        else:
+            vocab, _order = pl.wide_vocab(space, kmer_codes)
+        vocab = {n: torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a
+                 for n, a in vocab.items()}
+        d = tw.shape[1]
+        return pl.ClassifierParams(
+            twister=tw, metric=torch.full((d,), 1.0 / d, device=dev),
+            class_coords=torch.zeros((1, d), device=dev), class_norms=torch.ones(1, device=dev),
+            k=space.k, canonical=space.canonical, base=space.base, **vocab)
+
+    B, L = codes.shape
+    out = {}
+    space = KmerSpace("DNA-ds", LARGE_K)
+    kmers = wide_vocabulary(rng, codes, LARGE_K, 4, True, LARGE_K_VOCAB)
+    out[f"[{B}, {L}], k={LARGE_K}, V={LARGE_K_VOCAB}, cuckoo"] = (params_of(space, kmers, twister), codes)
+    out[f"[{B}, {L}], k={LARGE_K}, V={LARGE_K_VOCAB}, sorted limbs"] = (
+        params_of(space, kmers, twister, sorted_limbs=True), codes)
+    V = 367_987
+    space = KmerSpace("DNA-ds", 30)
+    kmers = wide_vocabulary(rng, codes, 30, 4, True, V)
+    out[f"[{B}, {L}], k=30, V={V}, cuckoo"] = (params_of(space, kmers, twister[:V]), codes)
+    V = 200_000
+    space = KmerSpace("protein", 8)
+    prot = rng.integers(0, 20, size=(128, 10_000), dtype=np.int8)
+    prot[:, 100::101] = -1
+    prot[1, :] = 0
+    prot = torch.as_tensor(prot, device=dev)
+    kmers = wide_vocabulary(rng, prot, 8, 20, False, V)
+    out[f"protein [128, 10000], base 20, k=8, V={V}, cuckoo"] = (
+        params_of(space, kmers, twister[:V]), prot)
+    return out
+
+
+def wide_rows(dev, rng, codes, d: int) -> dict:
+    """The wide count and bag against their plain versions on every
+    :func:`wide_blocks` input (the count torch.equal to the plain version
+    and to a second call, the bag within BAG_RTOL/BAG_ATOL and the float64
+    check), each count input with its kernels' time alone and its
+    wrapper's; the rows of the kernel table at the first input."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    twister = torch.randn((LARGE_K_VOCAB, d), generator=torch.Generator(dev).manual_seed(6),
+                          device=dev)
+    blocks = wide_blocks(dev, rng, codes, twister)
+    rows = {}
+    for i, (what, (params, c)) in enumerate(blocks.items()):
+        got = count_check(params, c, what)
+        err, plain_err = bag_errors(params, c, what)
+        table = params.cuckoo if params.cuckoo is not None else torch.cat([params.vocab_hi, params.vocab_lo])
+        log("kernel embedding_bag_wide at %s: max abs err to float64 %.3g, plain version %.3g; "
+            "table %.1f MB" % (what, err, plain_err, table.nbytes / 1e6))
+        # the lookup's share: device ms of each launch of one call
+        # (torch.profiler), the count's lookup and slices, the bag's stages
+        for name, fn in (("count", pl.count_spectra), ("bag", pl.project_reads)):
+            by_kernel = device_ms_by_kernel(lambda: fn(params, c))
+            log("kernel %s_wide at %s, device ms by launch: %s" % (name, what, ", ".join(
+                "%s %.4f" % (k.replace("void ", "").replace("(anonymous namespace)::", "")
+                             .split("(")[0][:32], v)
+                for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))))
+        if i:
+            del got
+            continue
+        B, L = c.shape
+        W = L - params.k + 1
+        idx = pl.vocab_lookup(params, c)
+        known = idx < params.n_vocab
+        hit = int(torch.unique(idx[known]).numel())
+        n_known = int(known.sum())
+        del idx, known
+        log("kernel wide lookup at %s: %d of %d windows known, %d distinct rows hit"
+            % (what, n_known, B * W, hit))
+        common = dict(library_ms=None, shape=what, path="large_k",
+                      replaces="kpop_tpu/ops/cuckoo.py:121")
+        # codes and the table read once, the [B, V] spectra written once;
+        # one add per window
+        rows["count_spectra_wide"] = dict(
+            bound(c.nbytes + table.nbytes + got.nbytes, B * W / F32_FLOPS * 1e3),
+            err=0.0, tol=COUNT_TOL,
+            ms=time_ms(lambda: pl.count_spectra(params, c)),
+            plain_ms=time_ms(lambda: pl.count_spectra_ref(params, c), reps=3),
+            source="kpop_tpu_torch/csrc/count_spectra.cu", launch="kpop_count_spectra_wide",
+            **common)
+        del got
+        bag = pl.project_reads(params, c)
+        # codes and the table read once, each hit twister row read once, the
+        # [B, d] output written once; an add per known window and column
+        rows["embedding_bag_wide"] = dict(
+            bound(c.nbytes + table.nbytes + hit * d * 4 + bag.nbytes, float(n_known) * d / F32_FLOPS * 1e3),
+            err=float((bag - pl.project_reads_ref(params, c)).abs().max()),
+            err_f64=err, plain_err_f64=plain_err,
+            tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL}; err to float64 <= {F64_ERR_RATIO:g}x the plain version's",
+            ms=time_ms(lambda: pl.project_reads(params, c), reps=5),
+            plain_ms=time_ms(lambda: pl.project_reads_ref(params, c), reps=3),
+            source="kpop_tpu_torch/csrc/embedding_bag.cu", launch="kpop_embedding_bag_wide",
+            **common)
+        del bag
+    del blocks, twister
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
@@ -692,6 +852,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         launch="kpop_embedding_bag", path="slice",
     )
     del idx, known, flat, per_row, offsets, weights, bag_lib
+    rows.update(wide_rows(dev, np.random.default_rng(7), codes, d))
 
     # the distance tile at four shapes.  The slice's: [B, d] twisted reads
     # against [C, d] classes, with the class norms of the parameters, as
@@ -774,17 +935,12 @@ def load_phylo():
     return mod
 
 
-def build_corpus(rng, n_classes: int, genome_len: int, tips_per_class=4,
-                 between=0.08, within=0.15, rate=0.01):
-    """The covid-shaped corpus of bench.py (``_build_corpus``): sibling
-    clades of a random tree, the first half of each clade's tips summed as
-    the class's training counts, the rest held out.  Returns (space,
-    vocabulary hex labels, [K, C] int32 table, held-out (class, codes))."""
-    from kpop_tpu_torch.core.count import spectrum_of_sequences
-    from kpop_tpu_torch.core.kmers import KmerSpace
-
+def simulate_corpus(rng, n_classes: int, genome_len: int, tips_per_class=4,
+                    between=0.08, within=0.15, rate=0.01) -> dict:
+    """The genomes of the covid-shaped corpus of bench.py
+    (``_build_corpus``): sibling clades of a random tree.  Returns each
+    class's (tip number, base codes) by class index."""
     phylo = load_phylo()
-    space = KmerSpace("DNA-ds", K)
     tree = phylo.random_clade_tree(
         rng, n_classes, tips_per_class, between=between, within=within
     )
@@ -795,6 +951,19 @@ def build_corpus(rng, n_classes: int, genome_len: int, tips_per_class=4,
         by_class.setdefault(int(name.split("-")[1]) - 1, []).append(
             (int(name.split("-")[0]), codes)
         )
+    return by_class
+
+
+def count_corpus(by_class: dict, k: int):
+    """The corpus counted at ``k`` (no draw from the rng): the first half
+    of each clade's tips summed as the class's training counts, the rest
+    held out.  Returns (space, vocabulary hex labels, [K, C] int32 table,
+    held-out (class, codes))."""
+    from kpop_tpu_torch.core.count import spectrum_of_sequences
+    from kpop_tpu_torch.core.kmers import KmerSpace
+
+    space = KmerSpace("DNA-ds", k)
+    n_classes = len(by_class)
     vocab_index: dict = {}
     cols, held_out = [], []
     for c in range(n_classes):
@@ -866,6 +1035,46 @@ def device_ms_by_kernel(fn) -> dict:
     return out
 
 
+def serve_routes(label: str, params, batches, kernels) -> tuple:
+    """The main path: the read sets served on the dense and the bag route,
+    every launch count set to 0 just before and read just after, each of
+    ``kernels`` launched; finite [read sets, classes] distances and top-1
+    accuracy >= ACCURACY_GATE on each route; then each route's device time
+    a batch and its largest kernels.  Returns (distance blocks by route,
+    launches, accuracy, device ms a batch)."""
+    from kpop_tpu_torch import _build
+    from kpop_tpu_torch.cli.classify import DeviceStep
+
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
+    dmats = {path: serve(DeviceStep(params, path), batches) for path in ("dense", "bag")}
+    launches = dict(_build.LAUNCHES)
+    log("%s: kernel launches on the main path: %s" % (label, json.dumps(launches)))
+    missing = [name for name in kernels if launches[name] == 0]
+    if missing:
+        raise AssertionError("%s: kernels never launched on the main path: %s" % (label, missing))
+    truth = np.concatenate([t for t, _ in batches])
+    accuracy = {}
+    for path, blocks in dmats.items():
+        dmat = np.concatenate(blocks)
+        if dmat.shape != (len(truth), params.class_coords.shape[0]) or not np.isfinite(dmat).all():
+            raise AssertionError(f"{label}, {path}: bad distances {dmat.shape}")
+        accuracy[path] = float((dmat.argmin(axis=1) == truth).mean())
+        log("%s: %s route top-1 accuracy %.4f over %d read sets"
+            % (label, path, accuracy[path], len(truth)))
+        if accuracy[path] < ACCURACY_GATE:
+            raise AssertionError(f"{label}, {path}: accuracy {accuracy[path]} < {ACCURACY_GATE}")
+    busy = {}
+    for path in ("dense", "bag"):
+        by_kernel = device_ms_by_kernel(lambda: serve(DeviceStep(params, path), batches))
+        busy[path] = sum(by_kernel.values()) / len(batches)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
+        log("%s: %s route device time %.4f ms a batch of %d (torch.profiler), largest: %s"
+            % (label, path, busy[path], len(batches[0][0]),
+               ", ".join("%s %.4f" % (k[:40], v / len(batches)) for k, v in top)))
+    return dmats, launches, accuracy, busy
+
+
 def host_chain_distances(space, twister, coords, metric_vec, seqs):
     """Host float64 golden chain: Twister.project_entries, then
     distance_rowwise against the classes."""
@@ -917,7 +1126,8 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    space, vocab_hex, table, held_out = build_corpus(rng, n_classes, genome_len)
+    genomes = simulate_corpus(rng, n_classes, genome_len)
+    space, vocab_hex, table, held_out = count_corpus(genomes, K)
     log("slice: corpus of %d classes, vocabulary %d, %d held-out tips (%.1f s)"
         % (n_classes, table.shape[0], len(held_out), time.perf_counter() - t0))
     t0 = time.perf_counter()
@@ -992,39 +1202,8 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
         % (params.twister.numel() * 4 / 1e6, time.perf_counter() - t0))
     batches = read_set_batches(rng, held_out, batch)
     n_seqs = sum(len(t) for t, _ in batches)
-    truth = np.concatenate([t for t, _ in batches])
     width = max(len(s) for _, seqs in batches for s in seqs)
-
-    # the main path: every count set to 0 just before, read just after
-    for name in _build.LAUNCHES:
-        _build.LAUNCHES[name] = 0
-    dmats = {path: serve(DeviceStep(params, path), batches) for path in ("dense", "bag")}
-    launches = dict(_build.LAUNCHES)
-    log("slice: kernel launches on the main path: %s" % json.dumps(launches))
-    missing = [name for name in SLICE_KERNELS if launches[name] == 0]
-    if missing:
-        raise AssertionError("kernels never launched on the main path: %s" % missing)
-
-    accuracy = {}
-    for path, blocks in dmats.items():
-        dmat = np.concatenate(blocks)
-        if dmat.shape != (n_seqs, n_classes) or not np.isfinite(dmat).all():
-            raise AssertionError(f"{path}: bad distances {dmat.shape}")
-        accuracy[path] = float((dmat.argmin(axis=1) == truth).mean())
-        log("slice: %s route top-1 accuracy %.4f over %d read sets"
-            % (path, accuracy[path], n_seqs))
-        if accuracy[path] < ACCURACY_GATE:
-            raise AssertionError(f"{path}: accuracy {accuracy[path]} < {ACCURACY_GATE}")
-
-    # the device time of each route per batch, and its largest kernels
-    busy = {}
-    for path in ("dense", "bag"):
-        by_kernel = device_ms_by_kernel(lambda: serve(DeviceStep(params, path), batches))
-        busy[path] = sum(by_kernel.values()) / len(batches)
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
-        log("slice: %s route device time %.4f ms a batch of %d (torch.profiler), largest: %s"
-            % (path, busy[path], batch, ", ".join("%s %.4f" % (k[:40], v / len(batches))
-                                                   for k, v in top)))
+    dmats, launches, accuracy, _busy = serve_routes("slice", params, batches, SLICE_KERNELS)
 
     t0 = time.perf_counter()
     metric_vec = twister.metrics_vector(Metric.of_string("powers(1,1,2)"))
@@ -1048,7 +1227,8 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
         % ([round(r, 1) for r in rates], n_seqs, auto, card))
     return dict(launches=launches, train_launches=train_launches, accuracy=accuracy,
                 host_err=host_err, seqs_per_s=rates, vocab=params.n_vocab, d=d,
-                train_s=train_s, train_phases=phases, ca_err=ca_err, table=table)
+                train_s=train_s, train_phases=phases, ca_err=ca_err, table=table,
+                genomes=genomes, batches=batches)
 
 
 # ---------------- phase 5: the quick start through the CLI ---------------
@@ -1324,6 +1504,86 @@ def phase_relatedness(dev, card: str, table: np.ndarray) -> dict:
     )
 
 
+# ---------------- phase 7: large k at full width -------------------------
+
+
+def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
+    """Phase 4's genomes counted at k = LARGE_K (above the dense-LUT limit),
+    trained on the card (``phi="device"``), parameters built around the
+    device twister with the cuckoo hash, and phase 4's held-out read sets
+    served on both routes: top-1 accuracy >= ACCURACY_GATE on each, the
+    wide count, the wide bag and the tile launched, each route's device
+    time a batch, and the first batch within HOST_CHAIN_ATOL of the host
+    float64 chain through the twister of the same fit with phi on the host
+    (float64; phase 4 shows the card's twister is that fit rounded to
+    f32)."""
+    import torch
+
+    from kpop_tpu_torch import _build
+    from kpop_tpu_torch.core.matrix import KPopMatrix, MatrixType, NamedMatrix
+    from kpop_tpu_torch.core.space import Metric
+    from kpop_tpu_torch.core.twister import Twister
+    from kpop_tpu_torch.ops.pipeline import params_around_twister
+    from kpop_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    space, vocab_hex, table, _ = count_corpus(genomes, LARGE_K)
+    n_classes = table.shape[1]
+    log("large k: phase 4's genomes counted at k=%d: vocabulary %d (%d expected), %d classes "
+        "(%.1f s)" % (LARGE_K, len(vocab_hex), LARGE_K_VOCAB, n_classes, time.perf_counter() - t0))
+    csums = table.sum(axis=0)
+    col_w = 1.0 / np.where(csums == 0.0, 1.0, csums)
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    coords, inertia, phi_dev, _sv = sharded.ca_fit_sharded(
+        table, col_weights=col_w, phi="device", device=dev
+    )
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if not _build.LAUNCHES["kpop_ca_gram"]:
+        raise AssertionError("large k: the train path never launched the Gram kernel")
+    log("large k: device CA fit of [%d, %d], %.3f s: %s"
+        % (*table.shape, train_s, ", ".join("%s %.4f s" % kv for kv in sharded.LAST_CA_PHASES.items())))
+    t0 = time.perf_counter()
+    coords64, inertia64, tw64, _ = sharded.ca_fit_sharded(table, col_weights=col_w, device=dev)
+    del table
+    rounded = torch.equal(phi_dev.cpu(), torch.from_numpy(np.ascontiguousarray(tw64.T)).float())
+    log("large k: the same fit with phi on the host (float64, the host chain's twister): the "
+        "card's twister is it rounded to f32: %s (%.1f s)" % (rounded, time.perf_counter() - t0))
+    if not rounded:
+        raise AssertionError("large k: the device twister is not the float64 fit rounded to f32")
+
+    t0 = time.perf_counter()
+    params = params_around_twister(space, vocab_hex, phi_dev, inertia, coords)
+    del phi_dev
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if params.cuckoo is None:
+        raise AssertionError("large k: the cuckoo build failed on the corpus vocabulary")
+    log("large k: parameters around the device twister, cuckoo table %s (%.1f MB), twister "
+        "%.1f MB (%.1f s)" % (list(params.cuckoo.shape), params.cuckoo.nbytes / 1e6,
+                              params.twister.nbytes / 1e6, time.perf_counter() - t0))
+    dmats, launches, accuracy, busy = serve_routes("large k", params, batches, LARGE_K_KERNELS)
+    log("large k: on %s" % card)
+
+    t0 = time.perf_counter()
+    dims = ["Dim%d" % (i + 1) for i in range(tw64.shape[0])]
+    twister64 = Twister(
+        KPopMatrix(MatrixType.TWISTER, NamedMatrix(dims, vocab_hex, tw64)),
+        KPopMatrix(MatrixType.INERTIA, NamedMatrix(["inertia"], dims, inertia64[None, :])),
+    )
+    metric_vec = twister64.metrics_vector(Metric.of_string("powers(1,1,2)"))
+    want = host_chain_distances(space, twister64, coords64, metric_vec, batches[0][1])
+    host_err = {path: float(np.abs(blocks[0] - want).max()) for path, blocks in dmats.items()}
+    log("large k: first batch vs host float64 chain: max abs %s (bound %g; %.1f s)"
+        % (json.dumps(host_err), HOST_CHAIN_ATOL, time.perf_counter() - t0))
+    if max(host_err.values()) > HOST_CHAIN_ATOL:
+        raise AssertionError(f"large k: distances off the host float64 chain: {host_err}")
+    return dict(launches=launches, accuracy=accuracy, host_err=host_err, busy=busy,
+                vocab=params.n_vocab, train_s=train_s)
+
+
 def main() -> int:
     import torch
 
@@ -1355,11 +1615,16 @@ def main() -> int:
     t0 = time.perf_counter()
     rel = phase_relatedness(dev, card, sl.pop("table"))
     log("relatedness: %.1f s" % (time.perf_counter() - t0))
+    # 7. large k
+    t0 = time.perf_counter()
+    lk = phase_large_k(dev, sl.pop("genomes"), sl.pop("batches"), card)
+    log("large k: %.1f s (device CA fit %.3f s)" % (time.perf_counter() - t0, lk["train_s"]))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kpop_tpu"))
     if loaded:
         raise AssertionError("JAX or the JAX package was imported: %s" % loaded[:10])
 
-    launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"]}
+    launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"],
+                "large_k": lk["launches"]}
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[r["path"]][r["launch"]], max_abs_err=r["err"],

@@ -37,15 +37,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
+# the large-k vocabulary, in place of a dense table: k_lo, cuckoo table,
+# its slots, seeds a1, b1, a2, b2, sorted vocab_hi, vocab_lo
+_WIDE = (_I, _P, _I, _U, _U, _U, _U, _P, _P)
 # C entry point -> argument types, the stream last (csrc/*.cu)
 _SIGNATURES = {
     # a, b, metric, na, nb, out, workspace, Q, T, D, feature slices, stream
     "kpop_pairwise_dist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # codes, B, L, k, canonical, base, lut, V, index scratch, out, stream
     "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P),
+    "kpop_count_spectra_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _P, _P),
     # codes, B, L, k, canonical, base, lut, V, twister, d, normalize,
     # slices, int workspace, float workspace, out, stream
     "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P),
+    "kpop_embedding_bag_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _I, _I, _I, _P, _P, _P, _P),
     # dmat, B, N, k, stats, top, idx (int64), stream
     "kpop_row_digest": (_P, _I, _I, _I, _P, _P, _P, _P),
     # x, wire, K, ns, alpha, u, beta, v, slices, rows per slice, out,

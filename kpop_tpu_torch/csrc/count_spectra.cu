@@ -41,8 +41,19 @@
 // order, and converted once; a float32 holds every integer below 2^24
 // exactly (the wrapper raises for W >= 2^24), so the result equals the
 // plain version bit for bit and is the same from run to run.
+//
+// Large k (kpop_count_spectra_wide): the rolling codes are uint64 (DNA 2
+// bits a base, masked to 2k bits; the reverse complement shifted in at bit
+// 2(k - 1)), the canonical code is the smaller full code, and the LUT read
+// becomes the two-limb lookup of wide_lookup.cuh: the cuckoo hash's one or
+// two probes, or a binary search in the sorted limbs.  The slices do not
+// change.  At k = 16 and V = 1,011,930 the bound is the 518 MB spectrum of
+// 128 read sets written once (0.155 ms at 3.35 TB/s); the lookup adds a
+// chain of up to six dependent reads of a 50 MB table a window.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wide_lookup.cuh"
 
 namespace {
 
@@ -56,19 +67,25 @@ constexpr int NARROW_MAX = 65535;       // windows a read set for u16 counters
 constexpr uint32_t MISS = 0xffffffffu;
 static_assert(RUN == 8, "two 16-byte loads and stores a thread");
 
+// Find: kpop::LutFind (an int code, a dense table) or kpop::WideFind (a
+// uint64 code, the cuckoo hash or the sorted limbs; wide_lookup.cuh)
+template <class Find>
 __global__ void __launch_bounds__(LOOKUP_THREADS)
 count_lookup(const int8_t* __restrict__ codes, int L, int k, int canonical, int base,
-             const int32_t* __restrict__ lut, int V, int Wp, uint32_t* __restrict__ idx) {
+             const Find find, int V, int Wp, uint32_t* __restrict__ idx) {
+    using Code = typename Find::Code;
     const int b = blockIdx.y;
     const int w0 = (blockIdx.x * LOOKUP_THREADS + threadIdx.x) * RUN;
     if (w0 >= Wp) return;
     const int8_t* s = codes + (size_t)b * L;
     const int W = L - k + 1;
-    int top = 1;  // base^(k-1)
+    Code top = 1;  // base^(k-1)
     for (int j = 1; j < k; ++j) top *= base;
-    // fwd = sum_j c[w+j] base^(k-1-j); rc = sum_j (3 - c[w+j]) 4^j (DNA);
-    // last_bad = the last position that is not a base
-    int fwd = 0, rc = 0, last_bad = w0 - 1;
+    // fwd = sum_j c[w+j] base^(k-1-j); rc = sum_j (3 - c[w+j]) 4^j (DNA:
+    // its 2 bits a base shifted in at the top); last_bad = the last
+    // position that is not a base
+    Code fwd = 0, rc = 0;
+    int last_bad = w0 - 1;
     auto push = [&](int j) {
         int c = j < L ? s[j] : -1;
         if (c < 0 || c >= base) {
@@ -76,7 +93,7 @@ count_lookup(const int8_t* __restrict__ codes, int L, int k, int canonical, int 
             c = 0;
         }
         fwd = (base == 4 ? (fwd & (top - 1)) : fwd % top) * base + c;
-        rc = (rc >> 2) + (3 - c) * top;
+        rc = (rc >> 2) + (Code)(3 - c) * top;
     };
     for (int j = w0; j < w0 + k - 1; ++j) push(j);
     uint32_t out[RUN];
@@ -86,8 +103,8 @@ count_lookup(const int8_t* __restrict__ codes, int L, int k, int canonical, int 
         push(w + k - 1);
         uint32_t v = MISS;
         if (w < W && last_bad < w) {
-            const int x = lut[canonical ? min(fwd, rc) : fwd];
-            if ((unsigned)x < (unsigned)V) v = (uint32_t)x;
+            const int x = find(canonical && fwd > rc ? rc : fwd);
+            if (x < V) v = (uint32_t)x;
         }
         out[r] = v;
     }
@@ -190,20 +207,19 @@ count_slices(const uint32_t* __restrict__ idx, int B, int Wp, int V, float* __re
                           out + (size_t)b * V + lo);
 }
 
-}  // namespace
-
-// idx: int32 scratch of B * Wp entries, Wp = L - k + 1 rounded up to RUN
-extern "C" int kpop_count_spectra(const int8_t* codes, int B, int L, int k, int canonical,
-                                  int base, const int32_t* lut, int V, uint32_t* idx,
-                                  float* out, void* stream) {
+// Both launches for any lookup; idx: uint32 scratch of B * Wp entries, Wp
+// = L - k + 1 rounded up to RUN
+template <class Find>
+int count_spectra(const int8_t* codes, int B, int L, int k, int canonical, int base,
+                  const Find& find, int V, uint32_t* idx, float* out, void* stream) {
     const int W = L - k + 1;
     if (B <= 0 || V <= 0) return (int)cudaGetLastError();
     const int Wp = W > 0 ? (W + RUN - 1) / RUN * RUN : 0;
     cudaStream_t st = (cudaStream_t)stream;
     if (Wp > 0) {
         const dim3 grid((Wp / RUN + LOOKUP_THREADS - 1) / LOOKUP_THREADS, B);
-        count_lookup<<<grid, LOOKUP_THREADS, 0, st>>>(codes, L, k, canonical, base, lut, V, Wp,
-                                                      idx);
+        count_lookup<Find><<<grid, LOOKUP_THREADS, 0, st>>>(codes, L, k, canonical, base, find, V,
+                                                            Wp, idx);
     }
     const bool wide = W > NARROW_MAX;
     const int cells = wide ? SLICE_BYTES / 4 : SLICE_BYTES / 2;
@@ -223,4 +239,29 @@ extern "C" int kpop_count_spectra(const int8_t* codes, int B, int L, int k, int 
     const int walkers = min(B, max(1, (per_sm * sms + slices - 1) / slices));
     kernel<<<dim3(slices, walkers), THREADS, SLICE_BYTES, st>>>(idx, B, Wp, V, out);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// k up to lut_k_max: lut is the dense [base^k + 1] table
+extern "C" int kpop_count_spectra(const int8_t* codes, int B, int L, int k, int canonical,
+                                  int base, const int32_t* lut, int V, uint32_t* idx,
+                                  float* out, void* stream) {
+    return count_spectra(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V, idx, out,
+                         stream);
+}
+
+// larger k: the cuckoo table [6, slots] with its seeds, or (cuckoo null)
+// the sorted limbs vocab_hi, vocab_lo [V] (wide_lookup.cuh)
+extern "C" int kpop_count_spectra_wide(const int8_t* codes, int B, int L, int k, int canonical,
+                                       int base, int k_lo, const int32_t* cuckoo, int slots,
+                                       uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
+                                       const int32_t* vocab_hi, const int32_t* vocab_lo, int V,
+                                       uint32_t* idx, float* out, void* stream) {
+    if (k > 32 || (!cuckoo && !(vocab_hi && vocab_lo)) || (cuckoo && (slots & (slots - 1))))
+        return (int)cudaErrorInvalidValue;
+    return count_spectra(codes, B, L, k, canonical, base,
+                         kpop::wide_find(base, k_lo, cuckoo, slots, a1, b1, a2, b2, vocab_hi,
+                                         vocab_lo, V),
+                         V, idx, out, stream);
 }

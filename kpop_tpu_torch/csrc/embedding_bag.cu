@@ -63,8 +63,14 @@
 // count x row is rounded once where a plain sum adds the row count times,
 // so the result differs from the plain version in the last bits; the sum
 // is the same from run to run.
+//
+// Large k (kpop_embedding_bag_wide): bag_histogram computes each window's
+// code in uint64 and looks it up in the cuckoo hash or the sorted limbs of
+// wide_lookup.cuh in place of the LUT; every later stage is the same.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wide_lookup.cuh"
 
 namespace {
 
@@ -103,19 +109,23 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// the vocabulary row of the window at s, V for a miss or a break
+// the vocabulary row of the window at s, V for a miss or a break; Find is
+// kpop::LutFind (an int code, a dense table) or kpop::WideFind (a uint64
+// code, the cuckoo hash or the sorted limbs; wide_lookup.cuh)
+template <class Find>
 __device__ __forceinline__ int window_row(const int8_t* s, int k, int canonical,
-                                          int base, const int32_t* lut, int V) {
-    int fwd = 0, rc = 0, mult = 1;
+                                          int base, const Find& find, int V) {
+    using Code = typename Find::Code;
+    Code fwd = 0, rc = 0, mult = 1;
     bool ok = true;
     for (int j = 0; j < k; ++j) {
         const int c = s[j];
         ok &= c >= 0 && c < base;  // no input indexes past the LUT
         fwd = fwd * base + c;
-        rc += (3 - c) * mult;
+        rc += (Code)(3 - c) * mult;
         mult *= base;
     }
-    return ok ? lut[canonical ? min(fwd, rc) : fwd] : V;
+    return ok ? find(canonical && fwd > rc ? rc : fwd) : V;
 }
 
 // ---- 1. bucket --------------------------------------------------------
@@ -125,9 +135,10 @@ __device__ __forceinline__ int window_row(const int8_t* s, int k, int canonical,
 // read set.  Lanes that fall in one bucket pool their atomic (a read that
 // repeats a k-mer sends every window to one bucket); buckets smaller than
 // a tile spread the atomics over more counters.
+template <class Find>
 __global__ void __launch_bounds__(HIST_THREADS)
 bag_histogram(const int8_t* __restrict__ codes, int L, int k, int canonical, int base,
-              const int32_t* __restrict__ lut, int V, int* __restrict__ vt,
+              const Find find, int V, int* __restrict__ vt,
               int* __restrict__ hist, int* __restrict__ n_known) {
     __shared__ int block_known;
     const int b = blockIdx.y;
@@ -140,7 +151,7 @@ bag_histogram(const int8_t* __restrict__ codes, int L, int k, int canonical, int
 #pragma unroll
     for (int i = 0; i < HIST_PER; ++i) {
         const int w = w0 + i * HIST_THREADS;
-        v[i] = w < W ? window_row(seq + w, k, canonical, base, lut, V) : V;
+        v[i] = w < W ? window_row(seq + w, k, canonical, base, find, V) : V;
     }
     __syncthreads();
     int known = 0;
@@ -634,19 +645,16 @@ __global__ void bag_slice_sum(const float* __restrict__ ws, int S, int B, int d,
     }
 }
 
-}  // namespace
-
 // One launch for a batch of B read sets, in groups of GROUP.  S: vocabulary
 // slices.  iwork holds, with T = ceil(V / R) and N = min(B, GROUP)
 // (L - k + 1): meta 4 T, hit 4 T, hdr HDR_INTS T, the counters and
 // cursors CNT T, the entries 2 N + 2 (the windows' rows first), keys N, nz
 // T, kbase T + 1, the tile totals T, n_known GROUP and n_nz 1 ints; fwork S
 // min(B, GROUP) d floats.  The twister must start on 16 bytes.
-extern "C" int kpop_embedding_bag(const int8_t* codes, int B, int L, int k,
-                                  int canonical, int base, const int32_t* lut,
-                                  int V, const float* twister, int d,
-                                  int normalize, int S, int* iwork,
-                                  float* fwork, float* out, void* stream) {
+template <class Find>
+int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int base,
+                  const Find& find, int V, const float* twister, int d, int normalize, int S,
+                  int* iwork, float* fwork, float* out, void* stream) {
     if (B <= 0 || d <= 0) return (int)cudaGetLastError();
     if (L < k || V <= 0 || S <= 0 || S > 65535 ||
         reinterpret_cast<uintptr_t>(twister) % 16 || reinterpret_cast<uintptr_t>(iwork) % 16)
@@ -687,8 +695,9 @@ extern "C" int kpop_embedding_bag(const int8_t* codes, int B, int L, int k,
         const dim3 bgrid(hist_blocks, Bg);
         if ((err = cudaMemsetAsync(bkt, 0, (size_t)CNT * T * 4, st)) != cudaSuccess) return (int)err;
         if ((err = cudaMemsetAsync(n_known, 0, GROUP * 4, st)) != cudaSuccess) return (int)err;
-        bag_histogram<<<bgrid, HIST_THREADS, 0, st>>>(codes + (size_t)g0 * L, L, k, canonical,
-                                                      base, lut, V, vt, bkt, n_known);
+        bag_histogram<Find><<<bgrid, HIST_THREADS, 0, st>>>(codes + (size_t)g0 * L, L, k,
+                                                            canonical, base, find, V, vt, bkt,
+                                                            n_known);
         const int tile_blocks = (T + 255) / 256;
         bag_tile_sums<<<tile_blocks, 256, 0, st>>>(bkt, T, tot);
         bag_scan<<<1, SCAN_THREADS, 0, st>>>(tot, nz, kbase, n_nz, T);
@@ -705,4 +714,32 @@ extern "C" int kpop_embedding_bag(const int8_t* codes, int B, int L, int k,
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
     return (int)cudaSuccess;
+}
+
+}  // namespace
+
+// k up to lut_k_max: lut is the dense [base^k + 1] table
+extern "C" int kpop_embedding_bag(const int8_t* codes, int B, int L, int k,
+                                  int canonical, int base, const int32_t* lut,
+                                  int V, const float* twister, int d,
+                                  int normalize, int S, int* iwork,
+                                  float* fwork, float* out, void* stream) {
+    return embedding_bag(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V, twister, d,
+                         normalize, S, iwork, fwork, out, stream);
+}
+
+// larger k: the cuckoo table [6, slots] with its seeds, or (cuckoo null)
+// the sorted limbs vocab_hi, vocab_lo [V] (wide_lookup.cuh)
+extern "C" int kpop_embedding_bag_wide(const int8_t* codes, int B, int L, int k, int canonical,
+                                       int base, int k_lo, const int32_t* cuckoo, int slots,
+                                       uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
+                                       const int32_t* vocab_hi, const int32_t* vocab_lo, int V,
+                                       const float* twister, int d, int normalize, int S,
+                                       int* iwork, float* fwork, float* out, void* stream) {
+    if (k > 32 || (!cuckoo && !(vocab_hi && vocab_lo)) || (cuckoo && (slots & (slots - 1))))
+        return (int)cudaErrorInvalidValue;
+    return embedding_bag(codes, B, L, k, canonical, base,
+                         kpop::wide_find(base, k_lo, cuckoo, slots, a1, b1, a2, b2, vocab_hi,
+                                         vocab_lo, V),
+                         V, twister, d, normalize, S, iwork, fwork, out, stream);
 }

@@ -8,8 +8,11 @@ JAX; the tests hold them equal to the originals.
 
 On the serving path the window codes are computed inside the counting and
 embedding-bag kernels (``csrc/count_spectra.cu``, ``csrc/embedding_bag.cu``);
-:func:`window_codes_batch` is the plain PyTorch version they are tested
-against.  Two-limb codes for k above :func:`lut_k_max` are not ported yet.
+:func:`window_codes_batch` (k up to :func:`lut_k_max`, looked up in a dense
+table) and :func:`window_codes_batch_wide` (two-limb codes for any k the
+reference counts, looked up in a cuckoo hash or by
+:func:`searchsorted_2limb`) are the plain PyTorch versions they are tested
+against.
 """
 
 from __future__ import annotations
@@ -84,6 +87,79 @@ def window_codes_batch(
         rc += (3 - c[:, j : j + W]).clamp(min=0) * mult
         mult *= base
     return torch.minimum(fwd, rc), ok
+
+
+def window_codes_batch_wide(
+    codes: torch.Tensor, k: int, canonical: bool, base: int = 4
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-limb window codes for any k the reference counts (DNA up to 30,
+    protein up to 12): ``[B, L]`` base codes -> ``(hi, lo, ok)``, each
+    ``[B, L-k+1]``, ``hi``/``lo`` int32.
+
+    The full window code is ``hi * base**k_lo + lo`` with ``(k_hi, k_lo)``
+    from :func:`split_k` (DNA k=30: two 30-bit limbs; DNA k <= 15 and
+    protein k <= 7: ``hi`` is 0).  Lexicographic order on (hi, lo) is the
+    numeric order of the full codes, so the canonical (DNA-ds) code is the
+    lexicographically smaller of the forward and reverse-complement pairs.
+    """
+    if canonical and base != 4:
+        raise ValueError("canonical encoding is DNA-only")
+    k_hi, k_lo = split_k(k, base)
+    c = codes.to(torch.int32)
+    B, L = c.shape
+    W = L - k + 1
+    if W <= 0:
+        raise ValueError(f"sequences shorter than k: L={L}, k={k}")
+
+    def at(j):
+        return c[:, j : j + W]
+
+    ok = torch.ones((B, W), dtype=torch.bool, device=c.device)
+    for j in range(k):
+        ok &= at(j) >= 0
+
+    def limb(positions, strand=lambda x: x):
+        """The base-``base`` number of the bases at ``positions``, most
+        significant first (Horner)."""
+        out = torch.zeros((B, W), dtype=torch.int32, device=c.device)
+        for j in positions:
+            out = out * base + strand(at(j)).clamp(min=0)
+        return out
+
+    # forward limbs: hi = bases [0, k_hi), lo = bases [k_hi, k)
+    fwd_hi = limb(range(k_hi))
+    fwd_lo = limb(range(k_hi, k))
+    if not canonical:
+        return fwd_hi, fwd_lo, ok
+    # reverse complement: rc = sum_i (3 - s[i]) base^i, so rc_hi holds
+    # positions [k_lo, k) and rc_lo positions [0, k_lo), the last most
+    # significant
+    rc_hi = limb(reversed(range(k_lo, k)), lambda x: 3 - x)
+    rc_lo = limb(reversed(range(k_lo)), lambda x: 3 - x)
+    use_fwd = (fwd_hi < rc_hi) | ((fwd_hi == rc_hi) & (fwd_lo <= rc_lo))
+    return (torch.where(use_fwd, fwd_hi, rc_hi), torch.where(use_fwd, fwd_lo, rc_lo), ok)
+
+
+def _pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is the lexicographic order of int32 pairs."""
+    return hi.long() * (1 << 32) + (lo.long() + (1 << 31))
+
+
+def searchsorted_2limb(
+    vh: torch.Tensor, vl: torch.Tensor, qh: torch.Tensor, ql: torch.Tensor
+) -> torch.Tensor:
+    """Lower-bound search of (hi, lo) query pairs in the ``[V]`` int32
+    limbs sorted by (hi, lo): the vocabulary index of each exact match, or
+    ``V`` for a miss (int32), as the JAX ``searchsorted_2limb``.  Plain
+    PyTorch: one ``torch.searchsorted`` on int64 pair keys."""
+    V = int(vh.shape[0])
+    if V == 0:
+        return torch.zeros(qh.shape, dtype=torch.int32, device=qh.device)
+    keys = _pair_key(vh, vl)
+    q = _pair_key(qh, ql)
+    pos = torch.searchsorted(keys, q.reshape(-1)).reshape(q.shape)
+    found = (pos < V) & (keys[pos.clamp(max=V - 1)] == q)
+    return torch.where(found, pos, torch.full_like(pos, V)).to(torch.int32)
 
 
 def encode_reads_host(

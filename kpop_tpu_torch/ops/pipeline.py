@@ -19,8 +19,14 @@ plain PyTorch version (``*_ref``) for tensors on the CPU and launches its
 kernel, or raises, for tensors on a card.  The twister product is a plain
 f32 ``torch.matmul``, as the JAX package left it to XLA.
 
-Not ported yet (they raise): k above :func:`~.encode.lut_k_max` (the
-two-limb cuckoo lookup) and bf16 twisters.
+Up to k = :func:`~.encode.lut_k_max` a window code is looked up in a dense
+table; above it (DNA k up to 30, protein up to 12) its two int32 limbs are
+looked up in a cuckoo hash or, when the hash could not be built, by binary
+search in the sorted limbs.  The count and the bag each have a second C
+entry point for that lookup (``kpop_count_spectra_wide``,
+``kpop_embedding_bag_wide``; ``csrc/wide_lookup.cuh``).
+
+Not ported yet (they raise): bf16 twisters.
 """
 
 from __future__ import annotations
@@ -34,7 +40,14 @@ from ..core.space import Distance, Metric, normalizations
 from ..core.twister import Twister
 
 from .. import _build
-from .encode import lut_k_max, window_codes_batch
+from .cuckoo import build_cuckoo, cuckoo_lookup_ref
+from .encode import (
+    lut_k_max,
+    searchsorted_2limb,
+    split_k,
+    window_codes_batch,
+    window_codes_batch_wide,
+)
 from .pairwise import H100_SMS, _sm_count, distance_tile, row_norms
 
 ROADMAP_NOTE = "not ported to kpop_tpu_torch yet (ROADMAP.md, queue 1)"
@@ -64,14 +77,21 @@ _INT_MAX = 2**31 - 1
 class ClassifierParams(nn.Module):
     """Device-resident parameters of the count + twist + classify model.
 
-    Buffers: ``vocab_lut [base^k + 1]`` int32 (code -> twister row, V for a
-    k-mer outside the vocabulary), ``twister [V, d]`` f32, ``metric [d]``,
-    ``class_coords [C, d]`` and ``class_norms [C]``.
+    Buffers: ``twister [V, d]`` f32, ``metric [d]``, ``class_coords [C,
+    d]``, ``class_norms [C]`` and the vocabulary.  Up to k =
+    :func:`~.encode.lut_k_max` the vocabulary is ``vocab_lut [base^k + 1]``
+    int32 (code -> twister row, V for a k-mer outside the vocabulary).
+    Above it (DNA k up to 30, protein up to 12) ``vocab_lut`` is None, the
+    twister rows are in the order of the sorted k-mer codes, and a window
+    code's two int32 limbs (:func:`~.encode.window_codes_batch_wide`) are
+    looked up in ``cuckoo [6, S]`` int32 with its four ``cuckoo_seeds``
+    (:mod:`.cuckoo`) or, when the cuckoo build failed, by binary search in
+    the sorted limbs ``vocab_hi``/``vocab_lo [V]`` int32.
     """
 
     def __init__(
         self,
-        vocab_lut: torch.Tensor,
+        vocab_lut: torch.Tensor | None,
         twister: torch.Tensor,
         metric: torch.Tensor,
         class_coords: torch.Tensor,
@@ -80,6 +100,10 @@ class ClassifierParams(nn.Module):
         canonical: bool,
         base: int = 4,
         distance_kind: str = "euclidean",
+        vocab_hi: torch.Tensor | None = None,
+        vocab_lo: torch.Tensor | None = None,
+        cuckoo: torch.Tensor | None = None,
+        cuckoo_seeds: tuple = (),
     ):
         super().__init__()
         if twister.dtype != torch.float32:
@@ -93,21 +117,34 @@ class ClassifierParams(nn.Module):
                 f"device classification supports euclidean/cosine, "
                 f"not {distance_kind!r}"
             )
-        if k > lut_k_max(base):
-            raise NotImplementedError(
-                f"k={k} is above the dense-LUT limit {lut_k_max(base)} for "
-                f"base {base}: the large-k cuckoo lookup is {ROADMAP_NOTE}"
-            )
-        if vocab_lut.shape != (base**k + 1,) or vocab_lut.dtype != torch.int32:
-            raise ValueError(
-                f"vocab_lut must be int32 of shape ({base**k + 1},), got "
-                f"{vocab_lut.dtype} {tuple(vocab_lut.shape)}"
-            )
+        V = twister.shape[0]
+        if k <= lut_k_max(base):
+            if vocab_lut is None or vocab_lut.shape != (base**k + 1,) or vocab_lut.dtype != torch.int32:
+                raise ValueError(
+                    f"k={k}: vocab_lut must be int32 of shape ({base**k + 1},), got "
+                    f"{None if vocab_lut is None else (vocab_lut.dtype, tuple(vocab_lut.shape))}"
+                )
+        else:
+            split_k(k, base)  # raises above two limbs
+            if vocab_lut is not None:
+                raise ValueError(f"k={k} is above the dense-LUT limit {lut_k_max(base)}")
+            if cuckoo is not None:
+                S = cuckoo.shape[-1]
+                if cuckoo.dtype != torch.int32 or cuckoo.shape != (6, S) or S & (S - 1) \
+                        or len(cuckoo_seeds) != 4:
+                    raise ValueError("cuckoo must be int32 [6, 2^n] with 4 seeds")
+            elif not all(t is not None and t.dtype == torch.int32 and t.shape == (V,)
+                         for t in (vocab_hi, vocab_lo)):
+                raise ValueError(f"k={k}: a cuckoo table or int32 [{V}] vocab_hi/vocab_lo")
         self.register_buffer("vocab_lut", vocab_lut)
         self.register_buffer("twister", twister)
         self.register_buffer("metric", metric)
         self.register_buffer("class_coords", class_coords)
         self.register_buffer("class_norms", class_norms)
+        self.register_buffer("vocab_hi", vocab_hi)
+        self.register_buffer("vocab_lo", vocab_lo)
+        self.register_buffer("cuckoo", cuckoo)
+        self.cuckoo_seeds = tuple(int(s) for s in cuckoo_seeds)
         self.k = k
         self.canonical = canonical
         self.base = base
@@ -118,6 +155,13 @@ class ClassifierParams(nn.Module):
         return self.twister.shape[0]
 
 
+#: the arrays of the JAX package's ClassifierParams that the port carries
+PARAM_ARRAYS = (
+    "vocab_lut", "twister", "metric", "class_coords", "class_norms",
+    "vocab_hi", "vocab_lo", "cuckoo",
+)
+
+
 def build_classifier_params(
     space: KmerSpace,
     twister: Twister,
@@ -126,8 +170,8 @@ def build_classifier_params(
     metric: Metric | None = None,
     device: torch.device | str | None = None,
 ) -> ClassifierParams:
-    """Assemble device parameters from host artefacts (the dense-LUT branch
-    of the JAX ``build_classifier_params``): the host ``[d, V]`` twister is
+    """Assemble device parameters from host artefacts, as the JAX
+    ``build_classifier_params`` does: the host ``[d, V]`` twister is
     uploaded as ``[V, d]`` f32, then :func:`params_around_twister`."""
     from ..config import device as default_device
 
@@ -151,31 +195,38 @@ def params_around_twister(
 ) -> ClassifierParams:
     """Classifier parameters around a ``[V, d]`` f32 twister that already
     lies on its device, such as the one ``ca_fit_sharded(phi="device")``
-    trains (the train-to-serve handoff of ``bench.py``, without a download):
-    the hex k-mer labels become a lookup table over the whole base^k code
-    space, with unknown k-mers routed to V (dropped, lib/Twister.ml:
-    167-169); the metric comes from the inertia (lib/Twister.ml:208-209)."""
+    trains (the train-to-serve handoff of ``bench.py``, without a download).
+    Unknown k-mers are routed to V (dropped, lib/Twister.ml:167-169); the
+    metric comes from the inertia (lib/Twister.ml:208-209).
+
+    Up to k = :func:`~.encode.lut_k_max` the hex k-mer labels become a
+    lookup table over the whole base^k code space.  Above it, as in the
+    JAX package: the codes are sorted (a stable argsort), split into limbs
+    at ``base**k_lo``, and hashed by :func:`~.cuckoo.build_cuckoo` (or kept
+    as sorted limbs when no seed converges); the twister's rows are
+    gathered into the sorted order, which briefly holds a second copy of
+    the twister on its device."""
     distance = distance or Distance.of_string("euclidean")
     metric = metric or Metric.of_string("powers(1,1,2)")
-    if space.k > lut_k_max(space.base):
-        raise NotImplementedError(
-            f"k={space.k} is above the dense-LUT limit "
-            f"{lut_k_max(space.base)}: the large-k cuckoo lookup is "
-            f"{ROADMAP_NOTE}"
-        )
-    kmer_codes = np.array([space.hex_to_code(h) for h in kmer_names], dtype=np.int64)
+    kmer_codes = np.array([space.hex_to_code(h) for h in kmer_names], dtype=np.uint64)
     V = len(kmer_codes)
-    lut = np.full(space.n_kmers + 1, V, dtype=np.int32)
-    lut[kmer_codes] = np.arange(V, dtype=np.int32)
+    device = twister.device
+    if space.k <= lut_k_max(space.base):
+        lut = np.full(space.n_kmers + 1, V, dtype=np.int32)
+        lut[kmer_codes.astype(np.int64)] = np.arange(V, dtype=np.int32)
+        vocab = dict(vocab_lut=torch.as_tensor(lut, device=device))
+    else:
+        vocab, order = wide_vocab(space, kmer_codes)
+        vocab = {name: torch.as_tensor(a, device=device) if isinstance(a, np.ndarray) else a
+                 for name, a in vocab.items()}
+        twister = twister.index_select(0, torch.as_tensor(order, device=device))
     mvec = metric.compute(np.asarray(inertia, dtype=np.float64))
     cls_norms = normalizations(distance, mvec, class_coords)
-    device = twister.device
 
     def f32(x):  # C order: the kernels take contiguous tensors
         return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)
 
     return ClassifierParams(
-        vocab_lut=torch.as_tensor(lut, device=device),
         twister=twister,
         metric=f32(mvec),
         class_coords=f32(class_coords),
@@ -184,7 +235,28 @@ def params_around_twister(
         canonical=space.canonical,
         base=space.base,
         distance_kind=distance.kind,
+        **vocab,
     )
+
+
+def wide_vocab(space: KmerSpace, kmer_codes: np.ndarray) -> tuple[dict, np.ndarray]:
+    """The large-k vocabulary of the uint64 k-mer codes (the large-k branch
+    of the JAX ``build_classifier_params``): ``vocab_lut=None`` and either
+    ``cuckoo`` with ``cuckoo_seeds`` or ``vocab_hi``/``vocab_lo``, as host
+    arrays, and the stable sort order that the twister's rows take."""
+    _k_hi, k_lo = split_k(space.k, space.base)
+    limb = np.uint64(space.base**k_lo)
+    order = np.argsort(kmer_codes, kind="stable")
+    sorted_codes = kmer_codes[order]
+    sorted_hi = (sorted_codes // limb).astype(np.int32)
+    sorted_lo = (sorted_codes % limb).astype(np.int32)
+    vocab = dict(vocab_lut=None)
+    built = build_cuckoo(sorted_hi, sorted_lo)
+    if built is not None:
+        vocab.update(cuckoo=built[0], cuckoo_seeds=built[1])
+    else:  # pathological vocabulary: binary search in the sorted limbs
+        vocab.update(vocab_hi=sorted_hi, vocab_lo=sorted_lo)
+    return vocab, order
 
 
 def params_from_jax(
@@ -194,17 +266,15 @@ def params_from_jax(
     base: int,
     distance_kind: str,
     device: torch.device | str | None = None,
+    cuckoo_seeds: tuple = (),
 ) -> ClassifierParams:
     """Carry the JAX package's ``ClassifierParams`` across: ``arrays`` holds
-    its fields ``vocab_lut``, ``twister``, ``metric``, ``class_coords`` and
-    ``class_norms`` as numpy arrays (``np.asarray(field)``)."""
+    its array fields (:data:`PARAM_ARRAYS`, those that are None left out or
+    None) as numpy arrays (``np.asarray(field)``); ``cuckoo_seeds`` is its
+    field of that name."""
     from ..config import device as default_device
 
     device = default_device() if device is None else torch.device(device)
-    if arrays.get("vocab_lut") is None:
-        raise NotImplementedError(
-            f"parameters without a dense vocab_lut (large k) are {ROADMAP_NOTE}"
-        )
     if np.asarray(arrays["twister"]).dtype != np.float32:
         raise NotImplementedError(
             f"{np.asarray(arrays['twister']).dtype} twisters are {ROADMAP_NOTE}"
@@ -212,29 +282,35 @@ def params_from_jax(
 
     def t(name):
         # a C-order copy: arrays taken from JAX are read-only
-        return torch.tensor(np.ascontiguousarray(arrays[name]), device=device)
+        a = arrays.get(name)
+        return None if a is None else torch.tensor(np.ascontiguousarray(a), device=device)
 
     return ClassifierParams(
-        vocab_lut=t("vocab_lut"),
-        twister=t("twister"),
-        metric=t("metric"),
-        class_coords=t("class_coords"),
-        class_norms=t("class_norms"),
+        **{name: t(name) for name in PARAM_ARRAYS},
         k=k,
         canonical=canonical,
         base=base,
         distance_kind=distance_kind,
+        cuckoo_seeds=cuckoo_seeds,
     )
 
 
 def vocab_lookup(params: ClassifierParams, base_codes: torch.Tensor) -> torch.Tensor:
     """``[B, L]`` base codes -> vocabulary index ``[B, W]`` in [0..V], with
-    V for a miss or an invalid window (plain PyTorch)."""
-    codes, ok = window_codes_batch(
-        base_codes, params.k, params.canonical, params.base
-    )
-    idx = params.vocab_lut[codes.long()]
-    return torch.where(ok, idx, torch.full_like(idx, params.n_vocab))
+    V for a miss or an invalid window (plain PyTorch): the dense table up
+    to k = :func:`~.encode.lut_k_max`, else the two-limb codes in the
+    cuckoo hash or, without one, the sorted limbs."""
+    V = params.n_vocab
+    if params.vocab_lut is not None:
+        codes, ok = window_codes_batch(base_codes, params.k, params.canonical, params.base)
+        idx = params.vocab_lut[codes.long()]
+    else:
+        hi, lo, ok = window_codes_batch_wide(base_codes, params.k, params.canonical, params.base)
+        if params.cuckoo is not None:
+            idx = cuckoo_lookup_ref(params.cuckoo, params.cuckoo_seeds, V, hi, lo)
+        else:
+            idx = searchsorted_2limb(params.vocab_hi, params.vocab_lo, hi, lo)
+    return torch.where(ok, idx, torch.full_like(idx, V))
 
 
 def _check_codes(name: str, params: ClassifierParams, base_codes: torch.Tensor):
@@ -284,10 +360,7 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
     B, L = _check_codes("count_spectra", params, base_codes)
     if base_codes.device.type == "cpu":
         return count_spectra_ref(params, base_codes)
-    _build.check_cuda(
-        "count_spectra", base_codes, params.vocab_lut,
-        dtypes=(torch.int8, torch.int32),
-    )
+    suffix, vocab = vocab_args("count_spectra", params, base_codes)
     if B > 65535:
         raise ValueError(f"count_spectra: batch {B} exceeds the kernel's grid")
     W = L - params.k + 1
@@ -301,11 +374,30 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
     scratch = torch.empty(B * Wp, dtype=torch.int32, device=dev)
     out = torch.empty((B, V), dtype=torch.float32, device=dev)
     _build.launch(
-        "kpop_count_spectra",
+        "kpop_count_spectra" + suffix,
         base_codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, params.vocab_lut.data_ptr(), V, scratch.data_ptr(), out.data_ptr(),
+        params.base, *vocab, V, scratch.data_ptr(), out.data_ptr(),
     )
     return out
+
+
+def vocab_args(name: str, params: ClassifierParams, base_codes: torch.Tensor):
+    """The C entry point's suffix and its vocabulary arguments, after
+    checking the tensors' devices and dtypes: ``("", (lut,))`` for the
+    dense table, else ``("_wide", (k_lo, cuckoo, slots, a1, b1, a2, b2,
+    vocab_hi, vocab_lo))`` with null pointers for the lookup not taken."""
+    if params.vocab_lut is not None:
+        _build.check_cuda(name, base_codes, params.vocab_lut, dtypes=(torch.int8, torch.int32))
+        return "", (params.vocab_lut.data_ptr(),)
+    _k_hi, k_lo = split_k(params.k, params.base)
+    if params.cuckoo is not None:
+        _build.check_cuda(name, base_codes, params.cuckoo, dtypes=(torch.int8, torch.int32))
+        return "_wide", (k_lo, params.cuckoo.data_ptr(), params.cuckoo.shape[1],
+                         *params.cuckoo_seeds, None, None)
+    _build.check_cuda(name, base_codes, params.vocab_hi, params.vocab_lo,
+                      dtypes=(torch.int8, torch.int32, torch.int32))
+    return "_wide", (k_lo, None, 0, 0, 0, 0, 0,
+                     params.vocab_hi.data_ptr(), params.vocab_lo.data_ptr())
 
 
 def project_reads_ref(
@@ -373,10 +465,9 @@ def project_reads(
     B, L = _check_codes("project_reads", params, base_codes)
     if base_codes.device.type == "cpu":
         return project_reads_ref(params, base_codes, normalize)
-    _build.check_cuda(
-        "project_reads", base_codes, params.vocab_lut, params.twister,
-        dtypes=(torch.int8, torch.int32, torch.float32),
-    )
+    suffix, vocab = vocab_args("project_reads", params, base_codes)
+    _build.check_cuda("project_reads", base_codes, params.twister,
+                      dtypes=(torch.int8, torch.float32))
     if params.twister.data_ptr() % 16:
         raise ValueError("project_reads: the twister must start on 16 bytes (bulk copies)")
     V, d = params.twister.shape
@@ -394,9 +485,9 @@ def project_reads(
     fwork = torch.empty(S * Bg * d, dtype=torch.float32, device=dev)
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
     _build.launch(
-        "kpop_embedding_bag",
+        "kpop_embedding_bag" + suffix,
         base_codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, params.vocab_lut.data_ptr(), V,
+        params.base, *vocab, V,
         params.twister.data_ptr(), d, int(normalize), S,
         iwork.data_ptr(), fwork.data_ptr(), out.data_ptr(),
     )

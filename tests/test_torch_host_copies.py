@@ -21,7 +21,7 @@ WHOLE = [
     "io/framed.py", "io/reads.py", "io/spectra.py",
     "core/kmers.py", "core/matrix.py", "core/space.py", "core/transforms.py",
     "core/counter_db.py", "core/splits.py", "core/count.py", "core/ca.py",
-    "cli/twist.py",
+    "cli/twist.py", "cli/count.py",
 ]
 #: copy -> (original, top-level names that differ on purpose)
 DIFFERENT = {
@@ -32,12 +32,14 @@ DIFFERENT = {
     "cli/classify.py": ("cli/classify.py", None),
     "cli/twistdb.py": ("cli/twistdb.py", None),
     "parallel/sharded.py": ("parallel/sharded.py", None),
+    "ops/cuckoo.py": ("ops/cuckoo.py", None),
 }
 #: names the port's module copies from the original's, verbatim
 SHARED = {
     "cli/classify.py": {"AmbiguousK", "infer_k"},
     "cli/twistdb.py": {"REGISTER_TYPES", "MATRIX_OF_REGISTER", "_register", "_parse_keep_at_most"},
     "parallel/sharded.py": {"_compact_exact_cast", "_factor_gram_host"},
+    "ops/cuckoo.py": {"_MAX_ROUNDS", "_MAX_SEED_ATTEMPTS", "_mix_np", "_seeds", "build_cuckoo"},
 }
 
 

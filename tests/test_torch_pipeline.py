@@ -252,8 +252,15 @@ def test_unported_paths_raise(trained):
             tparams.vocab_lut, tparams.twister.to(torch.bfloat16), tparams.metric,
             tparams.class_coords, tparams.class_norms, K, True,
         )
-    with pytest.raises(NotImplementedError):
-        tp.build_classifier_params(KmerSpace("DNA-ds", 13), twister, coords, device="cpu")
+    # k above the dense-LUT limit builds the cuckoo lookup; above two limbs
+    # split_k raises
+    wide = tp.build_classifier_params(KmerSpace("DNA-ds", 13), twister, coords, device="cpu")
+    assert wide.vocab_lut is None and wide.cuckoo is not None and len(wide.cuckoo_seeds) == 4
+    with pytest.raises(ValueError, match="two-limb"):
+        tp.ClassifierParams(
+            None, tparams.twister, tparams.metric, tparams.class_coords,
+            tparams.class_norms, 31, True, cuckoo=wide.cuckoo, cuckoo_seeds=wide.cuckoo_seeds,
+        )
     with pytest.raises(TypeError):
         tp.count_spectra(tparams, torch.zeros((2, 10), dtype=torch.int32))
     with pytest.raises(ValueError):
