@@ -33,7 +33,10 @@ prints no result.  It imports nothing of JAX or of the JAX package
    k=16 with a vocabulary of 1,011,930 on the cuckoo hash and on the
    sorted-limb fallback, at DNA-ds k=30 and on protein read sets at k=8,
    the count torch.equal to its plain version and to a second call, the
-   bag within the bag's tolerances and the float64 check;
+   bag within the bag's tolerances and the float64 check, each bag input
+   with the regime its accumulate takes, and the wide bag's row with one
+   ``F.embedding_bag`` call on the rows of the plain wide lookup as its
+   yardstick;
 4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
    tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
    at 1x coverage; vocabulary ~368k, d=511), trained on the card
@@ -266,6 +269,37 @@ def bag_errors(params, codes, what: str) -> tuple[float, float]:
             % (what, err, plain_err)
         )
     return err, plain_err
+
+
+def bag_library_call(params, codes, want):
+    """One PyTorch call that computes the bag's function, as its yardstick:
+    ``F.embedding_bag`` (mode sum) over the rows the plain lookup gives,
+    weighted by 1 / n_known per read set.  Held to the plain version
+    ``want`` within LIBRARY_RTOL of its largest value (the library sums
+    each bag in f32 in one sequence: on the row that repeats one k-mer
+    30,199 times that drifts to about 3e-4 relative).  Returns the call,
+    the known windows, the distinct rows they hit, and the distinct (row,
+    read set) entries and the tiles that hold them of a pass of the kernel
+    (which picks its regime by entries a tile, pipeline.bag_regime)."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    idx = pl.vocab_lookup(params, codes)
+    known = idx < params.n_vocab
+    flat = idx[known].long()
+    per_row = known.sum(dim=1)
+    offsets = torch.cumsum(per_row, 0) - per_row
+    weights = (1.0 / torch.clamp(per_row, min=1).float()).repeat_interleave(per_row)
+    call = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        flat, params.twister, offsets, mode="sum", per_sample_weights=weights)
+    lib_err = float((call() - want).abs().max())
+    if not lib_err <= LIBRARY_RTOL * float(want.abs().max()):
+        raise AssertionError(f"F.embedding_bag does not compute the bag's function: {lib_err:.3g}")
+    sets = torch.arange(codes.shape[0], device=codes.device)[:, None].expand_as(idx)[known]
+    entries = int(torch.unique(flat * pl.BAG_GROUP + sets % pl.BAG_GROUP).numel())
+    tiles = int(torch.unique(flat // pl.BAG_TILE_ROWS).numel())
+    return call, int(flat.numel()), int(torch.unique(flat).numel()), entries, tiles
 
 
 def bag_two_groups(params, rng, L: int) -> None:
@@ -575,8 +609,8 @@ def count_check(params, codes, what: str):
             % (what, int((got != want).sum()), int((got != again).sum())))
     B, L = codes.shape
     W = L - params.k + 1
-    Wp = -(-W // pl.COUNT_RUN) * pl.COUNT_RUN
-    scratch = torch.empty(B * Wp, dtype=torch.int32, device=codes.device)
+    scratch = torch.empty(pl.count_scratch_ints(B, L, params.k), dtype=torch.int32,
+                          device=codes.device)
     out = torch.empty_like(got)
     suffix, vocab = pl.vocab_args("count_spectra", params, codes)
     alone = kernel_alone_ms(
@@ -654,13 +688,13 @@ def wide_vocabulary(rng, codes, k: int, base: int, canonical: bool, V: int) -> n
     return rng.permutation(out)
 
 
-def wide_blocks(dev, rng, codes, twister) -> dict:
+def wide_blocks(dev, rng, codes, twister, first: int = 4) -> dict:
     """Large-k inputs for the wide count and bag, each with classifier
     parameters around a random twister: phase 3's batch at k = 16 with
     V = LARGE_K_VOCAB (the phase 7 vocabulary's size; a cuckoo table of [6,
     2^21]) on the cuckoo hash and on the sorted-limb fallback, the same
     batch at DNA-ds k = 30 (two 30-bit limbs, V = 367,987), and protein
-    read sets at k = 8 (base 20, V = 200,000)."""
+    read sets at k = 8 (base 20, V = 200,000); the ``first`` of them."""
     import torch
 
     from kpop_tpu_torch.core.kmers import KmerSpace
@@ -690,6 +724,8 @@ def wide_blocks(dev, rng, codes, twister) -> dict:
     out[f"[{B}, {L}], k={LARGE_K}, V={LARGE_K_VOCAB}, cuckoo"] = (params_of(space, kmers, twister), codes)
     out[f"[{B}, {L}], k={LARGE_K}, V={LARGE_K_VOCAB}, sorted limbs"] = (
         params_of(space, kmers, twister, sorted_limbs=True), codes)
+    if first <= 2:
+        return out
     V = 367_987
     space = KmerSpace("DNA-ds", 30)
     kmers = wide_vocabulary(rng, codes, 30, 4, True, V)
@@ -739,20 +775,19 @@ def wide_rows(dev, rng, codes, d: int) -> dict:
             continue
         B, L = c.shape
         W = L - params.k + 1
-        idx = pl.vocab_lookup(params, c)
-        known = idx < params.n_vocab
-        hit = int(torch.unique(idx[known]).numel())
-        n_known = int(known.sum())
-        del idx, known
-        log("kernel wide lookup at %s: %d of %d windows known, %d distinct rows hit"
-            % (what, n_known, B * W, hit))
-        common = dict(library_ms=None, shape=what, path="large_k",
-                      replaces="kpop_tpu/ops/cuckoo.py:121")
+        want = pl.project_reads_ref(params, c)
+        bag_lib, n_known, hit, entries, tiles = bag_library_call(params, c, want)
+        log("kernel wide lookup at %s: %d of %d windows known, %d distinct rows hit, %d "
+            "entries in %d tiles: the bag's %s regime"
+            % (what, n_known, B * W, hit, entries, tiles, pl.bag_regime(entries, tiles)))
+        # no library call counts into a [B, V] spectrum from window codes:
+        # index_add_ or a sparse product needs the kernel's own lookup first
+        common = dict(shape=what, path="large_k", replaces="kpop_tpu/ops/cuckoo.py:121")
         # codes and the table read once, the [B, V] spectra written once;
         # one add per window
         rows["count_spectra_wide"] = dict(
             bound(c.nbytes + table.nbytes + got.nbytes, B * W / F32_FLOPS * 1e3),
-            err=0.0, tol=COUNT_TOL,
+            err=0.0, tol=COUNT_TOL, library_ms=None,
             ms=time_ms(lambda: pl.count_spectra(params, c)),
             plain_ms=time_ms(lambda: pl.count_spectra_ref(params, c), reps=3),
             source="kpop_tpu_torch/csrc/count_spectra.cu", launch="kpop_count_spectra_wide",
@@ -763,14 +798,15 @@ def wide_rows(dev, rng, codes, d: int) -> dict:
         # [B, d] output written once; an add per known window and column
         rows["embedding_bag_wide"] = dict(
             bound(c.nbytes + table.nbytes + hit * d * 4 + bag.nbytes, float(n_known) * d / F32_FLOPS * 1e3),
-            err=float((bag - pl.project_reads_ref(params, c)).abs().max()),
+            err=float((bag - want).abs().max()),
             err_f64=err, plain_err_f64=plain_err,
+            library_ms=time_ms(bag_lib, reps=5),
             tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL}; err to float64 <= {F64_ERR_RATIO:g}x the plain version's",
             ms=time_ms(lambda: pl.project_reads(params, c), reps=5),
             plain_ms=time_ms(lambda: pl.project_reads_ref(params, c), reps=3),
             source="kpop_tpu_torch/csrc/embedding_bag.cu", launch="kpop_embedding_bag_wide",
             **common)
-        del bag
+        del bag, want, bag_lib
     del blocks, twister
     torch.cuda.empty_cache()
     return rows
@@ -813,33 +849,18 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     got = pl.project_reads(params, codes)
     want = pl.project_reads_ref(params, codes)
     # codes and LUT read once, each twister row the reads hit read once, the
-    # [B, d] output written once; an add per known window and column.  The
-    # library call: F.embedding_bag over the looked-up indices, weighted by
-    # 1 / n_known per read set (the same function in one call)
-    idx = pl.vocab_lookup(params, codes)
-    known = idx < V
-    flat = idx[known].long()
-    per_row = known.sum(dim=1)
-    offsets = torch.cumsum(per_row, 0) - per_row
-    weights = (1.0 / torch.clamp(per_row, min=1).float()).repeat_interleave(per_row)
-    bag_lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
-        flat, params.twister, offsets, mode="sum", per_sample_weights=weights)
-    # the library sums each bag in f32 in one sequence: on the row that
-    # repeats one k-mer 30,199 times that drifts to about 3e-4 relative
-    lib_err = float((bag_lib() - want).abs().max())
-    if not lib_err <= LIBRARY_RTOL * float(want.abs().max()):
-        raise AssertionError(f"F.embedding_bag does not compute the bag's function: {lib_err:.3g}")
-    hit = int(torch.unique(flat).numel())
+    # [B, d] output written once; an add per known window and column
+    bag_lib, n_known, hit, entries, tiles = bag_library_call(params, codes, want)
     # what a gather of one row per known window moves, against the hit
     # rows read once
-    log("kernel embedding_bag: %d known windows hit %d distinct rows of %d; a row per "
-        "window gathers %.4g GB, the hit rows once %.4g GB (each hit row %.2fx a batch); "
-        "max abs err to float64 %.3g, plain version %.3g"
-        % (flat.numel(), hit, V, flat.numel() * 4.0 * d / 1e9, hit * 4.0 * d / 1e9,
-           flat.numel() / max(hit, 1), bag_err_f64, bag_plain_err_f64))
+    log("kernel embedding_bag: %d known windows hit %d distinct rows of %d (%d entries: the "
+        "%s regime); a row per window gathers %.4g GB, the hit rows once %.4g GB (each hit "
+        "row %.2fx a batch); max abs err to float64 %.3g, plain version %.3g"
+        % (n_known, hit, V, entries, pl.bag_regime(entries, tiles), n_known * 4.0 * d / 1e9,
+           hit * 4.0 * d / 1e9, n_known / max(hit, 1), bag_err_f64, bag_plain_err_f64))
     rows["embedding_bag"] = dict(
         bound(codes.nbytes + params.vocab_lut.nbytes + hit * d * 4 + got.nbytes,
-              float(flat.numel()) * d / F32_FLOPS * 1e3),
+              float(n_known) * d / F32_FLOPS * 1e3),
         library_ms=time_ms(bag_lib, reps=5),
         err=float((got - want).abs().max()),
         err_f64=bag_err_f64, plain_err_f64=bag_plain_err_f64,
@@ -851,7 +872,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         replaces="kpop_tpu/ops/pipeline.py:200",
         launch="kpop_embedding_bag", path="slice",
     )
-    del idx, known, flat, per_row, offsets, weights, bag_lib
+    del bag_lib
     rows.update(wide_rows(dev, np.random.default_rng(7), codes, d))
 
     # the distance tile at four shapes.  The slice's: [B, d] twisted reads
@@ -1068,8 +1089,8 @@ def serve_routes(label: str, params, batches, kernels) -> tuple:
     for path in ("dense", "bag"):
         by_kernel = device_ms_by_kernel(lambda: serve(DeviceStep(params, path), batches))
         busy[path] = sum(by_kernel.values()) / len(batches)
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
-        log("%s: %s route device time %.4f ms a batch of %d (torch.profiler), largest: %s"
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+        log("%s: %s route device time %.4f ms a batch of %d (torch.profiler), by launch: %s"
             % (label, path, busy[path], len(batches[0][0]),
                ", ".join("%s %.4f" % (k[:40], v / len(batches)) for k, v in top)))
     return dmats, launches, accuracy, busy
@@ -1561,9 +1582,11 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
     torch.cuda.empty_cache()
     if params.cuckoo is None:
         raise AssertionError("large k: the cuckoo build failed on the corpus vocabulary")
-    log("large k: parameters around the device twister, cuckoo table %s (%.1f MB), twister "
-        "%.1f MB (%.1f s)" % (list(params.cuckoo.shape), params.cuckoo.nbytes / 1e6,
-                              params.twister.nbytes / 1e6, time.perf_counter() - t0))
+    log("large k: parameters around the device twister, cuckoo table %s (%.1f MB) and its "
+        "probe layout for the kernels (%.1f MB), twister %.1f MB (%.1f s)"
+        % (list(params.cuckoo.shape), params.cuckoo.nbytes / 1e6,
+           params.cuckoo_probe.nbytes / 1e6, params.twister.nbytes / 1e6,
+           time.perf_counter() - t0))
     dmats, launches, accuracy, busy = serve_routes("large k", params, batches, LARGE_K_KERNELS)
     log("large k: on %s" % card)
 

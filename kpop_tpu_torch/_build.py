@@ -38,9 +38,10 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
-# the large-k vocabulary, in place of a dense table: k_lo, cuckoo table,
-# its slots, seeds a1, b1, a2, b2, sorted vocab_hi, vocab_lo
-_WIDE = (_I, _P, _I, _U, _U, _U, _U, _P, _P)
+# the large-k vocabulary, in place of a dense table: k_lo, the cuckoo
+# table's probe layout, its slots a table, seeds a1, b1, a2, b2, the sorted
+# limbs {hi, lo}
+_WIDE = (_I, _P, _I, _U, _U, _U, _U, _P)
 # C entry point -> argument types, the stream last (csrc/*.cu)
 _SIGNATURES = {
     # a, b, metric, na, nb, out, workspace, Q, T, D, feature slices, stream

@@ -22,12 +22,17 @@
 // copies alone and its sums alone (bound by shared-memory loads and
 // instruction issue) take about as long each, and they overlap only in
 // part, since the same threads issue both (tools/probe_bag.py measures
-// each part and each stage).
+// each part and each stage).  At large k on random reads almost every
+// hit row serves one entry (852,380 rows for 853,022 entries at k = 16,
+// V = 1,011,930: 1.74 GB of row slices); there the gather regime below
+// reads them at 2.6-2.7 TB/s on an H100 (0.64-0.67 ms, the same with the
+// sums left out), so it is bound by HBM.
 //
 // The stages, per pass of up to GROUP read sets:
 //
-// 1. bucket.  bag_histogram computes each window's vocabulary row (window
-//    code, then the LUT), keeps it, and counts the known windows per
+// 1. bucket.  bag_histogram computes each window's vocabulary row (a
+//    rolling window code over a thread's HIST_PER consecutive windows,
+//    then the LUT; wide_lookup.cuh), keeps it, and counts the known windows per
 //    counter: one of COPIES per bucket of R / SUB rows, picked by the read
 //    set, so that rows that every read set hits do not pile their atomics
 //    on one address; bag_tile_sums, bag_scan and bag_cursors turn the
@@ -39,13 +44,19 @@
 //    run; the next stage only counts them.
 // 2. compact.  bag_compact, one block a tile that holds keys, counts the
 //    tile's keys into exact integer counts per (read set, row) in shared
-//    memory, with a mask of the rows each read set hit, and writes them
-//    back as entries {where the row sits among the tile's hit rows, count
-//    as f32}, read set by read set and each in row order, with the tile's
-//    hit-row mask.  It touches only the cells its keys hit.  Integer counts
-//    do not depend on the order of the keys, so from here on everything is
-//    deterministic.
-// 3. accumulate.  Block (y, s) owns columns [COLS y, COLS y + COLS) of d
+//    memory (u16, two to a word, while a read set has at most 65,535
+//    windows, so six blocks share an SM and hide each tile's dependent
+//    loads), with a mask of the rows each read set hit, and writes them
+//    back as entries {the row within the tile << 16 | where it sits among
+//    the tile's hit rows, count as f32}, read set by read set and each in
+//    row order, with the tile's hit-row mask; it also sums the pass's
+//    entries, which with its tiles choose the accumulate's regime.  It
+//    touches only the cells its keys hit.  Integer counts do not depend on
+//    the order of the keys, so from here on everything is deterministic.
+// 3. accumulate, in one of two regimes that add the same products in the
+//    same order (so the same bits).  Staged (bag_accumulate), where tiles
+//    hold more than GATHER_TILE_ENTRIES entries on average (k = 10):
+//    block (y, s) owns columns [COLS y, COLS y + COLS) of d
 //    and the tiles of slice s: the slices split the tiles into S parts of
 //    near-equal keys plus tiles.  It walks its tiles in order, the next
 //    one in flight: every thread issues 16-byte cp.async copies of the
@@ -56,6 +67,16 @@
 //    l columns l + 32 k, and adds count x row[c] (one f32 product, one f32
 //    add) for each read set's entries in entry order.  A (read set,
 //    column) has one owner, so there are no atomics on floats.
+//    Gather (bag_gather), where tiles are sparse (random reads at k = 16:
+//    853,022 entries on 852,380 hit rows in 7,906 tiles).  Staging
+//    then buys no reuse, and the staged ring's time went to its serial
+//    chain (wait for a tile, sum, barrier, issue the tile after next) and
+//    to the copies' issue, not to HBM (1.02 ms for 1.74 GB).  The
+//    same blocks, slices and owners read each entry's row slice straight
+//    into registers, GATHER_AHEAD entries in flight a warp and 32 warps an
+//    SM, with no shared memory and no barrier: each warp reads its read
+//    sets' entry ranges GATHER_TILES tiles at a time, fetches 32 entries
+//    at once, and adds them in order.
 // 4. slice sum.  Each block writes its [B, COLS] partial to an f32
 //    workspace [S, B, d]; bag_slice_sum adds the slices in order and
 //    divides by n_known, the read set's count of known windows.
@@ -65,8 +86,9 @@
 // is the same from run to run.
 //
 // Large k (kpop_embedding_bag_wide): bag_histogram computes each window's
-// code in uint64 and looks it up in the cuckoo hash or the sorted limbs of
-// wide_lookup.cuh in place of the LUT; every later stage is the same.
+// code in uint64 and looks it up in the cuckoo hash's fingerprints and
+// slots or the sorted limbs of wide_lookup.cuh in place of the LUT; every
+// later stage is the same.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,6 +110,7 @@ constexpr int HIST_WINDOWS = HIST_THREADS * HIST_PER;
 constexpr int SCAN_THREADS = 1024;
 constexpr int SCAN_ITEMS = 4;
 constexpr int COMPACT_THREADS = 256;
+constexpr int NARROW_MAX = 65535;         // windows a read set for the compact's u16 counts
 constexpr int ROW_CHUNKS = COLS / 4 + 1;  // 16-byte chunks that hold a row's slice
 constexpr int ROW_STRIDE = 4 * ROW_CHUNKS; // floats a staged row
 constexpr int HDR_INTS = 4 + GROUP + 4;    // a tile's stage header, 16-byte padded
@@ -109,63 +132,46 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// the vocabulary row of the window at s, V for a miss or a break; Find is
-// kpop::LutFind (an int code, a dense table) or kpop::WideFind (a uint64
-// code, the cuckoo hash or the sorted limbs; wide_lookup.cuh)
-template <class Find>
-__device__ __forceinline__ int window_row(const int8_t* s, int k, int canonical,
-                                          int base, const Find& find, int V) {
-    using Code = typename Find::Code;
-    Code fwd = 0, rc = 0, mult = 1;
-    bool ok = true;
-    for (int j = 0; j < k; ++j) {
-        const int c = s[j];
-        ok &= c >= 0 && c < base;  // no input indexes past the LUT
-        fwd = fwd * base + c;
-        rc += (Code)(3 - c) * mult;
-        mult *= base;
-    }
-    return ok ? find(canonical && fwd > rc ? rc : fwd) : V;
-}
-
 // ---- 1. bucket --------------------------------------------------------
 
 // grid (ceil(W / HIST_WINDOWS), B): each window's vocabulary row into vt
 // (V for a miss), and the known windows per bucket of R / SUB rows and per
-// read set.  Lanes that fall in one bucket pool their atomic (a read that
-// repeats a k-mer sends every window to one bucket); buckets smaller than
-// a tile spread the atomics over more counters.
+// read set.  A thread looks up HIST_PER consecutive windows with one
+// rolling code (wide_lookup.cuh::window_rows); the rows go out through
+// shared memory so that the block's stores to vt are coalesced.  Lanes
+// that fall in one bucket pool their atomic (a read that repeats a k-mer
+// sends every window to one bucket); buckets smaller than a tile spread
+// the atomics over more counters.
 template <class Find>
-__global__ void __launch_bounds__(HIST_THREADS)
+__global__ void __launch_bounds__(HIST_THREADS, 4)
 bag_histogram(const int8_t* __restrict__ codes, int L, int k, int canonical, int base,
               const Find find, int V, int* __restrict__ vt,
               int* __restrict__ hist, int* __restrict__ n_known) {
+    __shared__ int staged[HIST_THREADS * (HIST_PER + 1)];
     __shared__ int block_known;
     const int b = blockIdx.y;
     const int W = L - k + 1;
-    const int8_t* seq = codes + (size_t)b * L;
-    const int w0 = (int)blockIdx.x * HIST_WINDOWS + (int)threadIdx.x;
+    const int first = (int)blockIdx.x * HIST_WINDOWS;
     const int lane = threadIdx.x & 31;
     if (threadIdx.x == 0) block_known = 0;
     int v[HIST_PER];
-#pragma unroll
-    for (int i = 0; i < HIST_PER; ++i) {
-        const int w = w0 + i * HIST_THREADS;
-        v[i] = w < W ? window_row(seq + w, k, canonical, base, find, V) : V;
-    }
-    __syncthreads();
+    kpop::window_rows<HIST_PER>(codes + (size_t)b * L, L, k, canonical, base, find,
+                                first + (int)threadIdx.x * HIST_PER, W, v);
     int known = 0;
 #pragma unroll
     for (int i = 0; i < HIST_PER; ++i) {
-        const int w = w0 + i * HIST_THREADS;
-        if (w < W) vt[(size_t)b * W + w] = v[i];
+        staged[threadIdx.x * (HIST_PER + 1) + i] = v[i];
         const int u = v[i] < V ? v[i] / (R / SUB) * COPIES + b % COPIES : -1;
         const unsigned peers = __match_any_sync(FULL, u);
         if (u >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[u], __popc(peers));
         known += u >= 0;
     }
     for (int o = 16; o > 0; o >>= 1) known += __shfl_xor_sync(FULL, known, o);
+    __syncthreads();
     if (lane == 0 && known) atomicAdd(&block_known, known);
+    for (int i = threadIdx.x; i < HIST_WINDOWS; i += HIST_THREADS)
+        if (first + i < W)
+            vt[(size_t)b * W + first + i] = staged[i / HIST_PER * (HIST_PER + 1) + i % HIST_PER];
     __syncthreads();
     if (threadIdx.x == 0 && block_known) atomicAdd(&n_known[b], block_known);
 }
@@ -295,26 +301,37 @@ bag_scatter(const int* __restrict__ vt, int W, int V, int* __restrict__ cursor,
 // ---- 2. compact: one block a tile that holds keys -----------------------
 
 // Tile nz[j]'s keys -> exact counts per (read set, row) in shared memory
-// and the rows each read set hit -> entries {where row r sits among the
-// tile's hit rows in the ring, count as f32}, read set by read set and
-// each in row order, written over the tile's own key range of ent; meta[j]
+// and the rows each read set hit -> entries {r << 16 | where row r sits
+// among the tile's hit rows in the ring, count as f32}, read set by read
+// set and each in row order, written over the tile's own key range of ent;
+// *entries gains the tile's entries; meta[j]
 // = {tile, entries, entry base}, hit[j] = the tile's hit-row mask, and
 // hdr[j] = {tile, entry base & 1, entry base, 0, the first entry of each
 // read set, entries} (HDR_INTS, the header the accumulate copies).  The
 // counts are zeroed once, and after each tile only where its keys fell.
+// NARROW: u16 counts, two to a word, while a read set has at most
+// NARROW_MAX windows (no count can carry into its neighbour): half the
+// shared memory, so twice the blocks hide the tiles' dependent loads.
+template <bool NARROW>
+__device__ __forceinline__ unsigned count_of(const unsigned* cnt, int c) {
+    return NARROW ? (cnt[c >> 1] >> (16 * (c & 1))) & 0xffffu : cnt[c];
+}
+
+template <bool NARROW>
 __global__ void __launch_bounds__(COMPACT_THREADS)
 bag_compact(const int* __restrict__ keys, const int* __restrict__ nz,
             const int* __restrict__ kbase, const int* __restrict__ n_nz, int B, int d,
             int2* __restrict__ ent, int4* __restrict__ meta, int4* __restrict__ hit,
-            int* __restrict__ hdr) {
-    extern __shared__ int cnt[];  // [B, R]
+            int* __restrict__ hdr, int* __restrict__ entries) {
+    extern __shared__ unsigned cnt[];  // [B, R] counts
     __shared__ unsigned rows_of[GROUP][WORDS];
     __shared__ int nb[GROUP + 1];
     __shared__ unsigned hits[WORDS];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const unsigned below = (1u << lane) - 1u;
     const int n = *n_nz;
-    for (int i = threadIdx.x; i < B * R; i += COMPACT_THREADS) cnt[i] = 0;
+    int block_entries = 0;  // thread 0: the block's tiles
+    for (int i = threadIdx.x; i < (NARROW ? B * R / 2 : B * R); i += COMPACT_THREADS) cnt[i] = 0;
     for (int i = threadIdx.x; i < GROUP * WORDS; i += COMPACT_THREADS) rows_of[i / WORDS][i % WORDS] = 0;
     if (threadIdx.x < WORDS) hits[threadIdx.x] = 0;
     __syncthreads();
@@ -322,8 +339,10 @@ bag_compact(const int* __restrict__ keys, const int* __restrict__ nz,
         const int k0 = kbase[j], k1 = kbase[j + 1];
         const int t = nz[j];
         for (int i = k0 + threadIdx.x; i < k1; i += COMPACT_THREADS) {
-            const int key = keys[i], b = key & 255, r = key >> 8;
-            if (atomicAdd(&cnt[b * R + r], 1) == 0) atomicOr(&rows_of[b][r >> 5], 1u << (r & 31));
+            const int key = keys[i], b = key & 255, r = key >> 8, c = b * R + r;
+            const unsigned old = NARROW ? atomicAdd(&cnt[c >> 1], 1u << (16 * (c & 1))) >> (16 * (c & 1))
+                                        : atomicAdd(&cnt[c], 1u);
+            if ((NARROW ? old & 0xffffu : old) == 0) atomicOr(&rows_of[b][r >> 5], 1u << (r & 31));
         }
         __syncthreads();
         // the entries of each read set, and the tile's hit rows
@@ -375,8 +394,8 @@ bag_compact(const int* __restrict__ keys, const int* __restrict__ nz,
                     const int r = 32 * q + lane;
                     const int slot = slot0[q] + __popc(hits[q] & below);
                     ent[pos + __popc(m & below)] =
-                        make_int2(slot * ROW_STRIDE + row_shift(t * R + r, d, 0),
-                                  __float_as_int((float)cnt[b * R + r]));
+                        make_int2(r << 16 | (slot * ROW_STRIDE + row_shift(t * R + r, d, 0)),
+                                  __float_as_int((float)count_of<NARROW>(cnt, b * R + r)));
                 }
                 pos += __popc(m);
             }
@@ -388,17 +407,20 @@ bag_compact(const int* __restrict__ keys, const int* __restrict__ nz,
         if (threadIdx.x == 0) {
             meta[j] = make_int4(t, total, k0, 0);
             hit[j] = make_int4((int)hits[0], (int)hits[1], (int)hits[2], (int)hits[3]);
+            block_entries += total;
         }
         __syncthreads();
         // zero what this tile touched
         for (int i = k0 + threadIdx.x; i < k1; i += COMPACT_THREADS) {
-            const int key = keys[i];
-            cnt[(key & 255) * R + (key >> 8)] = 0;
+            const int key = keys[i], c = (key & 255) * R + (key >> 8);
+            if (NARROW) reinterpret_cast<unsigned short*>(cnt)[c] = 0;
+            else cnt[c] = 0;
         }
         for (int i = threadIdx.x; i < GROUP * WORDS; i += COMPACT_THREADS) rows_of[i / WORDS][i % WORDS] = 0;
         if (threadIdx.x < WORDS) hits[threadIdx.x] = 0;
         __syncthreads();
     }
+    if (threadIdx.x == 0 && block_entries) atomicAdd(entries, block_entries);
 }
 
 // ---- 3. accumulate ----------------------------------------------------
@@ -520,10 +542,10 @@ __device__ __forceinline__ void fill(unsigned char* st, int j, int4 m, int4 h,
     }
 }
 
-// the lane's 4 columns of the staged row at `off`, times the count
+// the lane's 4 columns of the staged row of entry a, times the count
 __device__ __forceinline__ void add_entry(float (&acc)[4], const float* rows, int2 a, int lane) {
     const float cf = __int_as_float(a.y);
-    const float* x = rows + a.x + lane;
+    const float* x = rows + (a.x & 0xffff) + lane;
     float v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) v[k] = x[32 * k];
@@ -543,6 +565,21 @@ __device__ __forceinline__ void add_read_set(float (&acc)[4], const int2* se, co
     if (e < e1) add_entry(acc, rows, se[e], lane);
 }
 
+// The accumulate's two regimes.  Where the pass's tiles that hold keys
+// hold at most GATHER_TILE_ENTRIES entries on average (random reads at
+// k = 16: 108, about one entry a hit row; real reads at k = 16: 225),
+// staging buys too little reuse for its ring's turn a tile, and the pass
+// takes bag_gather; else bag_accumulate (random reads at k = 10: 424; real
+// reads at k = 10: 632).  Both are launched; the one not chosen returns at
+// once.  Both add the same products in the same order, so the choice
+// never changes a bit of the result.
+constexpr int GATHER_TILE_ENTRIES = 300;
+
+__device__ __forceinline__ bool gather_regime(const int* __restrict__ entries,
+                                              const int* __restrict__ n_nz) {
+    return (long long)*entries <= (long long)GATHER_TILE_ENTRIES * *n_nz;
+}
+
 // grid (ceil(d / COLS), S); dynamic shared memory MBAR_BYTES + RING_BYTES.
 // Block (y, s) walks slice s's tiles in order.  Before each tile, its
 // threads issue the copies of every next tile that fits in the ring (up
@@ -555,8 +592,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
                const int* __restrict__ hdr, const int* __restrict__ kbase,
                const int* __restrict__ n_nz, const int2* __restrict__ ent,
-               const float* __restrict__ twister, int V, int d, int B,
-               float* __restrict__ ws) {
+               const int* __restrict__ entries, const float* __restrict__ twister, int V, int d,
+               int B, float* __restrict__ ws) {
+    if (gather_regime(entries, n_nz)) return;
     extern __shared__ __align__(16) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);
     unsigned char* ring = smem + MBAR_BYTES;
@@ -626,6 +664,114 @@ bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
     }
 }
 
+// tiles whose headers a warp reads at once (a lane a tile and read set),
+// and entries whose rows it has in flight at once
+constexpr int GATHER_TILES = 8;
+constexpr int GATHER_AHEAD = 2;
+static_assert(GATHER_TILES * 4 == 32, "a lane a (tile, read set) of the warp");
+
+// The gather regime: the grid, the slices and the owners of bag_accumulate
+// (warp w: read sets 4 w .. 4 w + 3 over columns COLS y + lane + 32 k), no
+// shared memory and no barrier.  Each warp walks its slice's tiles
+// GATHER_TILES at a time: lane 4 g + q reads the entry range of read set
+// 4 w + q in tile g, the warp fetches the 32 next entries of those ranges
+// (tile order, then entry order, for each read set) a lane each, and then
+// reads their twister rows straight from global memory, GATHER_AHEAD
+// entries' rows in flight, and adds count x row to the owner's sums in
+// entry order: the products and the order of bag_accumulate.
+__global__ void __launch_bounds__(THREADS, 1)
+bag_gather(const int4* __restrict__ meta, const int* __restrict__ hdr,
+           const int* __restrict__ kbase, const int* __restrict__ n_nz,
+           const int2* __restrict__ ent, const int* __restrict__ entries,
+           const float* __restrict__ twister, int d, int B, float* __restrict__ ws) {
+    if (!gather_regime(entries, n_nz)) return;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int col0 = blockIdx.x * COLS;
+    const int S = gridDim.y, s = blockIdx.y;
+    const int n = *n_nz;
+    const int j0 = slice_start(kbase, n, S, s), j1 = slice_start(kbase, n, S, s + 1);
+    bool in_row[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) in_row[k] = col0 + lane + 32 * k < d;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+    for (int jg = j0; jg < j1; jg += GATHER_TILES) {
+        const int j = jg + (lane >> 2);
+        int e = 0, count = 0, row0 = 0;
+        if (j < j1) {
+            const int4 m = meta[j];
+            const int* h = hdr + (size_t)j * HDR_INTS + 4 + 4 * w + (lane & 3);
+            e = m.z + h[0];
+            count = h[1] - h[0];
+            row0 = m.x * R;
+        }
+        int incl = count;  // entries of the lanes up to this one
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(FULL, incl, o);
+            if (lane >= o) incl += y;
+        }
+        const int total = __shfl_sync(FULL, incl, 31);
+        for (int i0 = 0; i0 < total; i0 += 32) {
+            // entry i0 + lane lies in the range of the first lane whose
+            // running total exceeds it
+            const int i = i0 + lane;
+            int owner = 0;
+#pragma unroll
+            for (int step = 16; step > 0; step >>= 1)
+                if (__shfl_sync(FULL, incl, owner + step - 1) <= i) owner += step;
+            owner = min(owner, 31);
+            const int first = __shfl_sync(FULL, e, owner) - __shfl_sync(FULL, incl - count, owner);
+            const int tile_row0 = __shfl_sync(FULL, row0, owner);
+            int2 a = make_int2(0, 0);
+            if (i < total) a = ent[first + i];
+            const int v = tile_row0 + (a.x >> 16);
+            // each read set's entries of the 32, in lane order, GATHER_AHEAD
+            // rows in flight at once
+#pragma unroll
+            for (int bi = 0; bi < 4; ++bi) {
+                unsigned mine = __ballot_sync(FULL, i < total && (owner & 3) == bi);
+                while (mine) {
+                    int us[GATHER_AHEAD];
+#pragma unroll
+                    for (int u = 0; u < GATHER_AHEAD; ++u) {
+                        us[u] = mine ? __ffs(mine) - 1 : -1;
+                        mine &= mine - 1;
+                    }
+                    float x[GATHER_AHEAD][4];
+#pragma unroll
+                    for (int u = 0; u < GATHER_AHEAD; ++u) {
+                        const float* src =
+                            twister + (size_t)__shfl_sync(FULL, v, us[u] & 31) * d + col0 + lane;
+#pragma unroll
+                        for (int k = 0; k < 4; ++k)
+                            x[u][k] = us[u] >= 0 && in_row[k] ? __ldg(src + 32 * k) : 0.0f;
+                    }
+#pragma unroll
+                    for (int u = 0; u < GATHER_AHEAD; ++u) {
+                        const float cf = __int_as_float(__shfl_sync(FULL, a.y, us[u] & 31));
+                        if (us[u] >= 0)
+#pragma unroll
+                            for (int k = 0; k < 4; ++k)
+                                acc[bi][k] = __fadd_rn(acc[bi][k], __fmul_rn(cf, x[u][k]));
+                    }
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int bi = 0; bi < 4; ++bi) {
+        const int b = 4 * w + bi;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int g = col0 + lane + 32 * k;
+            if (b < B && g < d) ws[((size_t)s * B + b) * d + g] = acc[bi][k];
+        }
+    }
+}
+
 // ---- 4. slice sum -----------------------------------------------------
 
 // out[b, c] = sum over slices in order of ws[j, b, c], over n_known[b]
@@ -649,8 +795,9 @@ __global__ void bag_slice_sum(const float* __restrict__ ws, int S, int B, int d,
 // slices.  iwork holds, with T = ceil(V / R) and N = min(B, GROUP)
 // (L - k + 1): meta 4 T, hit 4 T, hdr HDR_INTS T, the counters and
 // cursors CNT T, the entries 2 N + 2 (the windows' rows first), keys N, nz
-// T, kbase T + 1, the tile totals T, n_known GROUP and n_nz 1 ints; fwork S
-// min(B, GROUP) d floats.  The twister must start on 16 bytes.
+// T, kbase T + 1, the tile totals T, n_known GROUP, n_nz 1 and the pass's
+// entries 1 int; fwork S min(B, GROUP) d floats.  The twister must start
+// on 16 bytes.
 template <class Find>
 int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int base,
                   const Find& find, int V, const float* twister, int d, int normalize, int S,
@@ -676,25 +823,33 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
     int* tot = kbase + T + 1;
     int* n_known = tot + T;
     int* n_nz = n_known + GROUP;
+    int* entries = n_nz + 1;
     const size_t acc_smem = MBAR_BYTES + RING_BYTES;
-    const size_t compact_smem = (size_t)Bmax * R * 4;
+    const bool narrow = W <= NARROW_MAX;
+    auto compact = narrow ? bag_compact<true> : bag_compact<false>;
+    const int compact_smem = Bmax * R * (narrow ? 2 : 4);
     cudaError_t err = cudaFuncSetAttribute(
         bag_accumulate, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)acc_smem);
     if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(bag_compact, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)compact_smem);
+        err = cudaFuncSetAttribute(compact, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   compact_smem);
+    // the compact: one wave, every SM's resident blocks
+    int dev = 0, sms = 132, per_sm = 1;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, compact, COMPACT_THREADS,
+                                                            compact_smem);
     if (err != cudaSuccess) return (int)err;
-    int dev = 0, sms = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     const int hist_blocks = (W + HIST_WINDOWS - 1) / HIST_WINDOWS;
     const dim3 acc_grid((d + COLS - 1) / COLS, S);
-    const int compact_blocks = T < 3 * sms ? T : 3 * sms;
+    const int compact_blocks = T < max(1, per_sm) * sms ? T : max(1, per_sm) * sms;
     for (int g0 = 0; g0 < B; g0 += GROUP) {
         const int Bg = B - g0 < GROUP ? B - g0 : GROUP;
         const dim3 bgrid(hist_blocks, Bg);
         if ((err = cudaMemsetAsync(bkt, 0, (size_t)CNT * T * 4, st)) != cudaSuccess) return (int)err;
-        if ((err = cudaMemsetAsync(n_known, 0, GROUP * 4, st)) != cudaSuccess) return (int)err;
+        if ((err = cudaMemsetAsync(n_known, 0, (GROUP + 2) * 4, st)) != cudaSuccess) return (int)err;
         bag_histogram<Find><<<bgrid, HIST_THREADS, 0, st>>>(codes + (size_t)g0 * L, L, k,
                                                             canonical, base, find, V, vt, bkt,
                                                             n_known);
@@ -703,10 +858,12 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
         bag_scan<<<1, SCAN_THREADS, 0, st>>>(tot, nz, kbase, n_nz, T);
         bag_cursors<<<tile_blocks, 256, 0, st>>>(bkt, T, tot);
         bag_scatter<<<bgrid, HIST_THREADS, 0, st>>>(vt, W, V, bkt, keys);
-        bag_compact<<<compact_blocks, COMPACT_THREADS, (size_t)Bg * R * 4, st>>>(
-            keys, nz, kbase, n_nz, Bg, d, ent, meta, hit, hdr);
+        compact<<<compact_blocks, COMPACT_THREADS, compact_smem, st>>>(
+            keys, nz, kbase, n_nz, Bg, d, ent, meta, hit, hdr, entries);
         bag_accumulate<<<acc_grid, THREADS, acc_smem, st>>>(meta, hit, hdr, kbase, n_nz, ent,
-                                                            twister, V, d, Bg, fwork);
+                                                            entries, twister, V, d, Bg, fwork);
+        bag_gather<<<acc_grid, THREADS, 0, st>>>(meta, hdr, kbase, n_nz, ent, entries, twister,
+                                                 d, Bg, fwork);
         const size_t n = (size_t)Bg * d;
         const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
         bag_slice_sum<<<blocks, 256, 0, st>>>(fwork, S, Bg, d, n_known, normalize,
@@ -728,18 +885,19 @@ extern "C" int kpop_embedding_bag(const int8_t* codes, int B, int L, int k,
                          normalize, S, iwork, fwork, out, stream);
 }
 
-// larger k: the cuckoo table [6, slots] with its seeds, or (cuckoo null)
-// the sorted limbs vocab_hi, vocab_lo [V] (wide_lookup.cuh)
+// larger k: the cuckoo hash's probe layout (ops/cuckoo.py::probe_table) of
+// `slots` slots a table with its seeds, or (probe null) the sorted limbs
+// [V] {hi, lo} (wide_lookup.cuh)
 extern "C" int kpop_embedding_bag_wide(const int8_t* codes, int B, int L, int k, int canonical,
-                                       int base, int k_lo, const int32_t* cuckoo, int slots,
+                                       int base, int k_lo, const int32_t* probe, int slots,
                                        uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
-                                       const int32_t* vocab_hi, const int32_t* vocab_lo, int V,
+                                       const int32_t* limbs, int V,
                                        const float* twister, int d, int normalize, int S,
                                        int* iwork, float* fwork, float* out, void* stream) {
-    if (k > 32 || (!cuckoo && !(vocab_hi && vocab_lo)) || (cuckoo && (slots & (slots - 1))))
+    if (k > 32 || !probe == !limbs || (probe && (slots & (slots - 1))) ||
+        reinterpret_cast<uintptr_t>(probe) % 16 || reinterpret_cast<uintptr_t>(limbs) % 8)
         return (int)cudaErrorInvalidValue;
     return embedding_bag(codes, B, L, k, canonical, base,
-                         kpop::wide_find(base, k_lo, cuckoo, slots, a1, b1, a2, b2, vocab_hi,
-                                         vocab_lo, V),
+                         kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V),
                          V, twister, d, normalize, S, iwork, fwork, out, stream);
 }

@@ -12,8 +12,11 @@ classifier keeps the sorted limbs and looks them up by binary search
 (:func:`~.encode.searchsorted_2limb`).
 
 On a card the lookup runs inside the count and embedding-bag kernels
-(``csrc/wide_lookup.cuh``); :func:`cuckoo_lookup_ref` is the plain
-PyTorch version they are tested against.
+(``csrc/wide_lookup.cuh``) on :func:`probe_table`'s layout of the table:
+one 16-byte slot a probe and a 16-bit fingerprint a slot in front of
+them, so a miss reads no slot.  :func:`probe_lookup_ref` is the plain
+PyTorch version of that lookup and :func:`cuckoo_lookup_ref` the JAX
+package's; the tests hold the two equal.
 """
 
 from __future__ import annotations
@@ -140,3 +143,67 @@ def cuckoo_lookup_ref(
     hit2 = (table[3, s2] == qh) & (table[4, s2] == ql)
     missed = torch.full_like(table[2, s1], miss)
     return torch.where(hit1, table[2, s1], torch.where(hit2, table[5, s2], missed))
+
+
+def _fingerprint(x: torch.Tensor) -> torch.Tensor:
+    """The 16-bit fingerprint of a full 32-bit mix: its top 16 bits, 0 read
+    as 1 (0 marks an empty slot)."""
+    f = x >> 16
+    return torch.where(f == 0, torch.ones_like(f), f)
+
+
+def probe_table(table: torch.Tensor, seeds: tuple[int, int, int, int]) -> torch.Tensor:
+    """The card's layout of a :func:`build_cuckoo` table ``[6, S]``: int32
+    ``[9 S]``, the 2 S slots of 16 bytes ``{hi, lo, idx, 0}`` (the first
+    table's S, then the second's), then 2 S uint16 fingerprints, two to an
+    int32 (the even slot's in the low half).  The fingerprint at a first-
+    table slot is the top 16 bits of the key's second mix, and the one at a
+    second-table slot those of its first mix, so it does not repeat the
+    bits that chose its slot; an empty slot (hi = -1) holds 0, which no key
+    gives.  Built on the table's device, in int64 arithmetic."""
+    a1, b1, a2, b2 = seeds
+    S = int(table.shape[1])
+    slots = torch.zeros((2, S, 4), dtype=torch.int32, device=table.device)
+    fps = torch.zeros((2, S), dtype=torch.int64, device=table.device)
+    for t in range(2):
+        hi, lo = table[3 * t], table[3 * t + 1]
+        slots[t, :, 0], slots[t, :, 1], slots[t, :, 2] = hi, lo, table[3 * t + 2]
+        other = (a2, b2) if t == 0 else (a1, b1)
+        fps[t] = torch.where(hi == -1, torch.zeros_like(fps[t]),
+                             _fingerprint(mix(hi, lo, *other, _U32)))
+    fps = fps.reshape(-1)
+    packed = fps[0::2] | fps[1::2] << 16
+    packed = torch.where(packed >= 2**31, packed - 2**32, packed).to(torch.int32)
+    return torch.cat([slots.reshape(-1), packed])
+
+
+def probe_lookup_ref(
+    probe: torch.Tensor,
+    seeds: tuple[int, int, int, int],
+    miss: int,
+    qh: torch.Tensor,
+    ql: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernels' lookup on :func:`probe_table`'s
+    layout: the fingerprints at the key's two slots, then the slot whose
+    fingerprint matches (the first table's first), its key compared; the
+    stored idx (int32), or ``miss`` for a miss and for an idx outside [0,
+    miss)."""
+    a1, b1, a2, b2 = seeds
+    S = probe.numel() // 9
+    slots = probe[: 8 * S].view(2 * S, 4)
+    packed = probe[8 * S :].long() & _U32
+    x1, x2 = mix(qh, ql, a1, b1, _U32), mix(qh, ql, a2, b2, _U32)
+    s1, s2 = x1 & (S - 1), S + (x2 & (S - 1))
+
+    def stored(s):
+        return (packed[s >> 1] >> (16 * (s & 1))) & 0xFFFF
+
+    hits = []
+    for s, x in ((s1, x2), (s2, x1)):
+        e = slots[s]
+        hits.append((stored(s) == _fingerprint(x)) & (e[..., 0] == qh) & (e[..., 1] == ql))
+    e1, e2 = slots[s1][..., 2], slots[s2][..., 2]
+    missed = torch.full_like(e1, miss)
+    x = torch.where(hits[0], e1, torch.where(hits[1], e2, missed))
+    return torch.where((x >= 0) & (x < miss), x, missed)

@@ -40,7 +40,7 @@ from ..core.space import Distance, Metric, normalizations
 from ..core.twister import Twister
 
 from .. import _build
-from .cuckoo import build_cuckoo, cuckoo_lookup_ref
+from .cuckoo import build_cuckoo, cuckoo_lookup_ref, probe_table
 from .encode import (
     lut_k_max,
     searchsorted_2limb,
@@ -63,6 +63,11 @@ BAG_TILE_ROWS = 128
 #: counters of the bag kernel's key list a tile: 8 buckets of 16 rows, 4
 #: counters a bucket
 BAG_COUNTERS = 32
+#: the bag kernel's gather regime: a pass whose vocabulary tiles that hold
+#: keys hold at most this many (row, read set) entries on average reads
+#: each entry's row straight into registers (``bag_gather``), else through
+#: a ring in shared memory (``bag_accumulate``); the two give the same bits
+BAG_GATHER_TILE_ENTRIES = 300
 #: windows a thread of the count kernel (csrc/count_spectra.cu) looks up
 #: and merges; the index scratch pads each read set to a multiple of it
 COUNT_RUN = 8
@@ -86,7 +91,12 @@ class ClassifierParams(nn.Module):
     code's two int32 limbs (:func:`~.encode.window_codes_batch_wide`) are
     looked up in ``cuckoo [6, S]`` int32 with its four ``cuckoo_seeds``
     (:mod:`.cuckoo`) or, when the cuckoo build failed, by binary search in
-    the sorted limbs ``vocab_hi``/``vocab_lo [V]`` int32.
+    the sorted limbs ``vocab_hi``/``vocab_lo [V]`` int32.  The kernels read
+    the cuckoo table in the layout of :func:`~.cuckoo.probe_table`, built
+    here once on the table's device: ``cuckoo_probe [9 S]`` int32 (36
+    bytes a slot of each table, 75.5 MB at S = 2^21), an attribute and not a
+    buffer, since the JAX package's parameters have no such array; the
+    sorted limbs likewise as ``vocab_limbs [V, 2]`` {hi, lo}.
     """
 
     def __init__(
@@ -145,6 +155,8 @@ class ClassifierParams(nn.Module):
         self.register_buffer("vocab_lo", vocab_lo)
         self.register_buffer("cuckoo", cuckoo)
         self.cuckoo_seeds = tuple(int(s) for s in cuckoo_seeds)
+        self.cuckoo_probe = None if cuckoo is None else probe_table(cuckoo, self.cuckoo_seeds)
+        self.vocab_limbs = None if vocab_hi is None else torch.stack([vocab_hi, vocab_lo], 1)
         self.k = k
         self.canonical = canonical
         self.base = base
@@ -349,14 +361,35 @@ def count_plan(W: int, V: int) -> tuple[int, int, int]:
     return bits, cells, -(-V // cells)
 
 
+def count_tasks(slices: int, B: int, blocks: int) -> list[range]:
+    """The count kernel's split of its ``slices * B`` (slice, read set)
+    tasks, slice-major (task ``s B + b``), over ``blocks`` blocks, at most
+    one wave of them: block g takes ``[g T / G, (g + 1) T / G)``, so no two
+    blocks differ by more than one task."""
+    T = slices * B
+    G = max(1, min(T, blocks))
+    return [range(T * g // G, T * (g + 1) // G) for g in range(G)]
+
+
+def count_scratch_ints(B: int, L: int, k: int) -> int:
+    """The count kernel's int32 scratch: each read set's row of ``Wp`` (its
+    windows rounded up to ``COUNT_RUN``), where the lookup appends the
+    vocabulary indices of the known windows, then each read set's count of
+    them."""
+    W = L - k + 1
+    return B * (-(-W // COUNT_RUN) * COUNT_RUN) + B
+
+
 def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.Tensor:
     """``[B, L]`` int8 base codes -> vocabulary-aligned spectra ``[B, V]``
     f32.  Counts are exact (integers below 2^24 per cell).
 
     On a card, ``csrc/count_spectra.cu``: each window is looked up once
-    into an int32 scratch ``[B, Wp]``, then a block a vocabulary slice
-    walks the read sets, counts each in shared memory (:func:`count_plan`)
-    and writes its slice whole, so the output needs no zeroing."""
+    and the known ones' indices appended to an int32 scratch
+    (:func:`count_scratch_ints`), then one wave of blocks takes the
+    (vocabulary slice, read set) tasks (:func:`count_tasks`), counts each
+    in shared memory (:func:`count_plan`) and writes its slice whole, so
+    the output needs no zeroing."""
     B, L = _check_codes("count_spectra", params, base_codes)
     if base_codes.device.type == "cpu":
         return count_spectra_ref(params, base_codes)
@@ -369,9 +402,8 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
             f"count_spectra: {W} windows a read set; a count above 2^24 is not exact in f32"
         )
     V = params.n_vocab
-    Wp = -(-W // COUNT_RUN) * COUNT_RUN
     dev = base_codes.device
-    scratch = torch.empty(B * Wp, dtype=torch.int32, device=dev)
+    scratch = torch.empty(count_scratch_ints(B, L, params.k), dtype=torch.int32, device=dev)
     out = torch.empty((B, V), dtype=torch.float32, device=dev)
     _build.launch(
         "kpop_count_spectra" + suffix,
@@ -384,20 +416,20 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
 def vocab_args(name: str, params: ClassifierParams, base_codes: torch.Tensor):
     """The C entry point's suffix and its vocabulary arguments, after
     checking the tensors' devices and dtypes: ``("", (lut,))`` for the
-    dense table, else ``("_wide", (k_lo, cuckoo, slots, a1, b1, a2, b2,
-    vocab_hi, vocab_lo))`` with null pointers for the lookup not taken."""
+    dense table, else ``("_wide", (k_lo, probe, slots, a1, b1, a2, b2,
+    limbs))`` with a null pointer for the lookup not taken (``probe``: the
+    cuckoo table's :func:`~.cuckoo.probe_table` layout; ``limbs``: the
+    sorted ``[V, 2]`` limbs)."""
     if params.vocab_lut is not None:
         _build.check_cuda(name, base_codes, params.vocab_lut, dtypes=(torch.int8, torch.int32))
         return "", (params.vocab_lut.data_ptr(),)
     _k_hi, k_lo = split_k(params.k, params.base)
     if params.cuckoo is not None:
-        _build.check_cuda(name, base_codes, params.cuckoo, dtypes=(torch.int8, torch.int32))
-        return "_wide", (k_lo, params.cuckoo.data_ptr(), params.cuckoo.shape[1],
-                         *params.cuckoo_seeds, None, None)
-    _build.check_cuda(name, base_codes, params.vocab_hi, params.vocab_lo,
-                      dtypes=(torch.int8, torch.int32, torch.int32))
-    return "_wide", (k_lo, None, 0, 0, 0, 0, 0,
-                     params.vocab_hi.data_ptr(), params.vocab_lo.data_ptr())
+        _build.check_cuda(name, base_codes, params.cuckoo_probe, dtypes=(torch.int8, torch.int32))
+        return "_wide", (k_lo, params.cuckoo_probe.data_ptr(), params.cuckoo.shape[1],
+                         *params.cuckoo_seeds, None)
+    _build.check_cuda(name, base_codes, params.vocab_limbs, dtypes=(torch.int8, torch.int32))
+    return "_wide", (k_lo, None, 0, 0, 0, 0, 0, params.vocab_limbs.data_ptr())
 
 
 def project_reads_ref(
@@ -432,11 +464,21 @@ def bag_workspace_ints(B: int, L: int, k: int, V: int) -> int:
     hit masks and headers (``BAG_GROUP + 16`` ints a tile), the
     ``BAG_COUNTERS`` counters of each tile, 2 N + 2 of entries (the
     windows' rows first), N keys, 3 T + 1 of the tiles that hold keys, their
-    key offsets and the tiles' totals, and ``BAG_GROUP + 1`` counts.  The
+    key offsets and the tiles' totals, and ``BAG_GROUP + 2`` counts.  The
     same layout as the kernel's."""
     T = -(-V // BAG_TILE_ROWS)
     N = min(B, BAG_GROUP) * (L - k + 1)
-    return (BAG_GROUP + 19 + BAG_COUNTERS) * T + 3 * N + BAG_GROUP + 4
+    return (BAG_GROUP + 19 + BAG_COUNTERS) * T + 3 * N + BAG_GROUP + 5
+
+
+def bag_regime(entries: int, tiles: int) -> str:
+    """The accumulate the bag kernel takes for a pass of ``entries``
+    distinct (row, read set) pairs in ``tiles`` vocabulary tiles of
+    :data:`BAG_TILE_ROWS` rows that hold keys: ``"gather"`` where a tile
+    holds at most :data:`BAG_GATHER_TILE_ENTRIES` entries on average
+    (random reads at k = 16: 108; real reads at k = 16: 225), else
+    ``"staged"`` (the kernel decides on the card from the same counts)."""
+    return "gather" if entries <= BAG_GATHER_TILE_ENTRIES * tiles else "staged"
 
 
 def bag_plan(V: int, d: int, n_sm: int = H100_SMS) -> int:
@@ -458,10 +500,12 @@ def project_reads(
 
     On a card, ``csrc/embedding_bag.cu``: each pass of ``BAG_GROUP`` read
     sets buckets its known windows by vocabulary tile, turns each tile
-    into exact integer counts, reads each hit twister row once per column
-    block and adds count x row to the read sets that hit it; the
-    :func:`bag_plan` slices of the vocabulary are summed in order.  The
-    result is the same from run to run."""
+    into exact integer counts, and adds count x row to the read sets that
+    hit each row: through a ring in shared memory that reads each hit row
+    once per column block, or, where the vocabulary tiles are sparse
+    (:func:`bag_regime`), straight from global memory into registers;
+    the :func:`bag_plan` slices of the vocabulary are summed in order.
+    The result is the same from run to run, and in either regime."""
     B, L = _check_codes("project_reads", params, base_codes)
     if base_codes.device.type == "cpu":
         return project_reads_ref(params, base_codes, normalize)

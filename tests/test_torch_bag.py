@@ -96,6 +96,66 @@ def emulate_bag(params, codes, normalize=True, n_sm=H100_SMS, seed=0):
     return out, counts
 
 
+def gather_sequences(tiles, S_starts, nz, Bg):
+    """bag_gather's walk of one slice's tiles, for each warp's 4 read sets:
+    lane 4 g + q reads the entry range of read set 4 w + q in tile jg + g
+    (GATHER_TILES = 8 tiles a step), the 32 lanes' ranges are flattened by
+    a prefix sum over the lanes, and entry i is found in the range of the
+    first lane whose running total exceeds it.  ``tiles[t][b]`` lists the
+    (row, count) entries of read set b in tile t in row order.  Returns,
+    for each read set, the entries in the order the kernel adds them."""
+    seq = {b: [] for b in range(Bg)}
+    for w in range(-(-Bg // 4)):
+        for jg in range(S_starts[0], S_starts[1], 8):
+            ranges = []
+            for lane in range(32):
+                g, q = divmod(lane, 4)
+                j, b = jg + g, 4 * w + q
+                ranges.append(tiles[nz[j]][b] if j < S_starts[1] and b < Bg else [])
+            incl = np.cumsum([len(r) for r in ranges])
+            for i in range(int(incl[-1]) if len(incl) else 0):
+                owner = int(np.searchsorted(incl, i, side="right"))  # first incl > i
+                first = incl[owner] - len(ranges[owner])
+                seq[4 * w + owner % 4].append(ranges[owner][i - first])
+    return seq
+
+
+def test_gather_adds_each_read_set_in_the_staged_order():
+    """bag_gather and bag_accumulate add count x row to each read set in
+    the same (tile, row) order, so the two regimes give the same bits; a
+    slice of tiles holding 0 to 9 entries a read set, read sets past the
+    group's end empty."""
+    rng = np.random.default_rng(11)
+    Bg, n_tiles = 45, 29
+    nz = np.arange(n_tiles) * 3
+    tiles = {}
+    for t in nz:
+        tiles[t] = {}
+        for b in range(Bg):
+            rows = np.sort(rng.choice(tp.BAG_TILE_ROWS, size=int(rng.integers(0, 10)), replace=False))
+            tiles[t][b] = [(int(r), int(rng.integers(1, 5))) for r in rows]
+    for lo, hi in ((0, n_tiles), (3, 20), (7, 7)):
+        seq = gather_sequences(tiles, (lo, hi), nz, Bg)
+        for b in range(Bg):
+            staged = [(t, e) for t in nz[lo:hi] for e in tiles[t][b]]
+            assert [e for _, e in staged] == seq[b]
+
+
+def test_bag_regime_by_entries_a_tile():
+    """Sparse tiles take the gather regime: phase 3's random reads at
+    k = 16 (853,022 entries in 7,906 tiles) and phase 4's real reads at
+    k = 16 (225 entries a tile); denser ones keep the staged ring: random
+    reads at k = 10 (424 a tile) and real reads at k = 10 (632)."""
+    assert tp.bag_regime(853_022, 7_906) == "gather"
+    assert tp.bag_regime(1_775_441, 7_906) == "gather"
+    assert tp.bag_regime(1_218_884, 2_875) == "staged"
+    assert tp.bag_regime(1_815_859, 2_873) == "staged"
+    T = 1000
+    assert tp.bag_regime(tp.BAG_GATHER_TILE_ENTRIES * T, T) == "gather"
+    assert tp.bag_regime(tp.BAG_GATHER_TILE_ENTRIES * T + 1, T) == "staged"
+    assert tp.bag_regime(0, 0) == "gather"
+
+
 def random_params(seed, V, d, canonical=True):
     """Torch and JAX parameters of a random k=5 vocabulary of V k-mers
     that holds the all-A k-mer."""

@@ -4,12 +4,14 @@ count_spectra_ref and the JAX package's count_spectra.
 
 The kernel runs only on the card.  Its plan is emulated here: each thread
 looks up COUNT_RUN consecutive windows with a rolling forward and reverse-
-complement code into an index scratch padded to a multiple of COUNT_RUN;
-then a block a (read set, vocabulary slice) merges each thread's runs of
-equal indices, adds each run to u16 (two a 32-bit word) or u32 counters as
-count_plan chooses by the windows a read set, and writes its slice whole.
-The emulation checks that no u16 cell carries into its neighbour and that
-every output cell is written exactly once.
+complement code, and each block appends its known windows' indices to
+the read set's row of the scratch, blocks in any order; then one wave of
+blocks takes the (vocabulary slice, read set) tasks as count_tasks splits
+them, merges each thread's runs of equal indices, adds each run to u16
+(two a 32-bit word) or u32 counters as count_plan chooses by the windows a
+read set, and writes the slice whole by counter quads.  The emulation
+checks that no u16 cell carries into its neighbour and that every output
+cell is written exactly once.
 
 Tolerance: none.  Counts are integers, so the spectra are held equal
 (np.array_equal) to the plain version and to JAX."""
@@ -52,9 +54,15 @@ def make_params(seed, k, V, base=4, canonical=True, d=3):
     return tparams, jparams
 
 
-def emulate_lookup(params, codes: np.ndarray) -> np.ndarray:
-    """count_lookup: the ``[B, Wp]`` u32 index scratch, each thread's
-    COUNT_RUN windows from one rolling code (numpy, all threads at once)."""
+def emulate_lookup(params, codes: np.ndarray, seed: int = 0):
+    """count_lookup: each thread's COUNT_RUN windows from one rolling code
+    (numpy, all threads at once); each block of 256 threads appends its
+    known windows' indices, in window order, at a place its one atomic on
+    the read set's count claims, so blocks land in any order (``seed``
+    shuffles them).  Returns the ``[B, Wp]`` u32 scratch, whose entries past
+    each read set's count are left as they were (garbage here), and the
+    counts."""
+    rng = np.random.default_rng(seed)
     k, base, canonical = params.k, params.base, params.canonical
     lut = params.vocab_lut.numpy().astype(np.int64)
     V = params.n_vocab
@@ -66,7 +74,7 @@ def emulate_lookup(params, codes: np.ndarray) -> np.ndarray:
     fwd = np.zeros((B, len(w0)), np.int64)
     rc = np.zeros_like(fwd)
     last_bad = np.broadcast_to(w0 - 1, fwd.shape).copy()
-    out = np.full((B, Wp), MISS, dtype=np.uint32)
+    rows = np.full((B, Wp), MISS, dtype=np.uint32)
 
     def push(j):
         nonlocal fwd, rc
@@ -85,50 +93,72 @@ def emulate_lookup(params, codes: np.ndarray) -> np.ndarray:
         valid = (w < W) & (last_bad < w)
         code = np.minimum(fwd, rc) if canonical else fwd
         x = lut[np.where(valid, code, 0)]
-        out[:, w] = np.where(valid & (x >= 0) & (x < V), x, MISS).astype(np.uint32)
-    return out
+        rows[:, w] = np.where(valid & (x >= 0) & (x < V), x, MISS).astype(np.uint32)
+    block = 256 * tp.COUNT_RUN  # windows a block looks up
+    out = rng.integers(0, 2**32, size=(B, Wp), dtype=np.uint64).astype(np.uint32)
+    n = np.zeros(B, dtype=np.int64)
+    for b in range(B):
+        parts = [p[p != MISS] for p in np.split(rows[b], range(block, Wp, block))]
+        known = np.concatenate([parts[i] for i in rng.permutation(len(parts))])
+        n[b] = len(known)
+        out[b, : n[b]] = known
+    return out, n
 
 
-def emulate_slices(idx: np.ndarray, V: int, W: int):
+def emulate_slices(idx: np.ndarray, n_idx: np.ndarray, V: int, W: int, blocks: int = 264):
     """count_slices: the ``[B, V]`` f32 spectra, and the most atomics one
-    counter of each read set took."""
+    counter of each read set took.  The (slice, read set) tasks go to the
+    blocks as count_tasks splits them; a task reads the read set's first
+    n_idx[b] indices (the rest masked), each thread merging equal
+    neighbours of its COUNT_RUN before one atomic, into counters shifted by
+    the slice's place within its 16-byte line of the output; then every
+    counter quad is read, zeroed and stored."""
     bits, cells, S = tp.count_plan(W, V)
     B, Wp = idx.shape
     out = np.full((B, V), np.nan, dtype=np.float32)
     writes = np.zeros((B, V), dtype=np.int64)
     most_atomics = np.zeros(B, dtype=np.int64)
-    for b in range(B):
-        runs = idx[b].reshape(-1, tp.COUNT_RUN)
-        # each thread's runs of equal neighbours: one atomic each
-        starts = np.ones(runs.shape, dtype=bool)
-        starts[:, 1:] = runs[:, 1:] != runs[:, :-1]
-        lens = np.diff(np.append(np.flatnonzero(starts.ravel()), runs.size))
-        heads = runs.ravel()[starts.ravel()]
-        for s in range(S):
+    for tasks in tp.count_tasks(S, B, blocks):
+        for task in tasks:
+            s, b = divmod(task, B)
+            runs = np.where(np.arange(Wp) < n_idx[b], idx[b], MISS).reshape(-1, tp.COUNT_RUN)
+            # each thread's runs of equal neighbours: one atomic each
+            starts = np.ones(runs.shape, dtype=bool)
+            starts[:, 1:] = runs[:, 1:] != runs[:, :-1]
+            lens = np.diff(np.append(np.flatnonzero(starts.ravel()), runs.size))
+            heads = runs.ravel()[starts.ravel()]
             lo, n = s * cells, min(cells, V - s * cells)
+            shift = (b * V + lo) % 4
             cell = (heads.astype(np.int64) - lo) & 0xFFFFFFFF  # u32 wrap, as the kernel
             mine = cell < n
+            at = cell[mine] + shift
             if bits == 16:
-                words = np.zeros(cells // 2, dtype=np.int64)
-                np.add.at(words, cell[mine] >> 1, lens[mine] << (16 * (cell[mine] & 1)))
+                words = np.zeros(cells // 2 + 2, dtype=np.int64)
+                np.add.at(words, at >> 1, lens[mine] << (16 * (at & 1)))
                 assert (words >> 32 == 0).all(), "a u16 pair overflowed its word"
                 counts = np.stack([words & 0xFFFF, words >> 16], axis=1).ravel()
                 # no low half carried into its high half
-                assert (counts == np.bincount(cell[mine], lens[mine], minlength=cells)).all()
+                assert (counts == np.bincount(at, lens[mine], minlength=len(counts))).all()
             else:
-                counts = np.bincount(cell[mine], lens[mine], minlength=cells).astype(np.int64)
+                counts = np.bincount(at, lens[mine], minlength=cells + 4).astype(np.int64)
                 assert (counts < 2**32).all()
+            assert not counts[:shift].any() and not counts[n + shift :].any()
             if mine.any():
                 most_atomics[b] = max(most_atomics[b], int(np.bincount(cell[mine]).max()))
-            out[b, lo : lo + n] = counts[:n].astype(np.float32)
-            writes[b, lo : lo + n] += 1
+            # counter quad q holds output cells 4 q - shift .. 4 q + 3 - shift
+            for q in range((n + shift + 3) // 4):
+                for i in range(4):
+                    c = 4 * q + i - shift
+                    if 0 <= c < n:
+                        out[b, lo + c] = np.float32(counts[4 * q + i])
+                        writes[b, lo + c] += 1
     assert (writes == 1).all(), "every cell is written once"
     return out, most_atomics
 
 
 def emulate_count(params, codes: np.ndarray):
     W = codes.shape[1] - params.k + 1
-    return emulate_slices(emulate_lookup(params, codes), params.n_vocab, W)
+    return emulate_slices(*emulate_lookup(params, codes), params.n_vocab, W)
 
 
 def read_like(seed, B, L, base=4):

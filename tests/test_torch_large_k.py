@@ -36,6 +36,8 @@ from kpop_tpu_torch.ops import cuckoo as tc
 from kpop_tpu_torch.ops import encode as te
 from kpop_tpu_torch.ops import pipeline as tp
 
+from test_torch_wide_lookup import emulate_probe_rows, lockstep_lower_bound
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BIN = os.path.join(REPO, "bin")
 PROTEIN = list("ACDEFGHIKLMNPQRSTVWY")
@@ -283,10 +285,10 @@ def emulate_wide_lookup(params, codes: np.ndarray) -> np.ndarray:
     complement codes over COUNT_RUN windows (DNA: 2 bits a base, masked to
     2k bits; the complement shifted in at 2(k - 1); protein: base 20),
     takes the smaller full code, splits it at base^k_lo and probes the
-    cuckoo table (slot s1 of the first table, then s2 of the second) or
-    searches the sorted limbs.  Returns the [B, W] rows, V for a miss.  The
-    bag's window_row computes each window's code afresh; it is checked
-    against the same limbs."""
+    cuckoo table's card layout (both fingerprints, then a matching slot)
+    or searches the sorted limbs in lockstep (wide_lookup.cuh::
+    window_rows, which the count's lookup and the bag's histogram share).
+    Returns the [B, W] rows, V for a miss, and the limbs."""
     k, base, canonical, V = params.k, params.base, params.canonical, params.n_vocab
     _k_hi, k_lo = te.split_k(k, base)
     B, L = codes.shape
@@ -312,19 +314,13 @@ def emulate_wide_lookup(params, codes: np.ndarray) -> np.ndarray:
     def find(code):
         limb = np.uint64(base**k_lo)
         hi, lo = (code // limb).astype(np.int32), (code % limb).astype(np.int32)
+        qh, ql = hi.ravel(), lo.ravel()
         if params.cuckoo is not None:
-            t = params.cuckoo.numpy()
-            a1, b1, a2, b2 = params.cuckoo_seeds
-            mask = t.shape[1] - 1
-            s1, s2 = tc._mix_np(hi, lo, a1, b1, mask), tc._mix_np(hi, lo, a2, b2, mask)
-            hit1 = (t[0, s1] == hi) & (t[1, s1] == lo)
-            hit2 = (t[3, s2] == hi) & (t[4, s2] == lo)
-            return np.where(hit1, t[2, s1], np.where(hit2, t[5, s2], V)), hi, lo
-        vh, vl = params.vocab_hi.numpy(), params.vocab_lo.numpy()
-        pos = np.array([np.searchsorted(vh.astype(np.int64) << 32 | vl, int(h) << 32 | int(l))
-                        for h, l in zip(hi.ravel(), lo.ravel())]).reshape(hi.shape)
-        safe = np.minimum(pos, V - 1)
-        return np.where((pos < V) & (vh[safe] == hi) & (vl[safe] == lo), pos, V), hi, lo
+            x = emulate_probe_rows(params.cuckoo_probe.numpy(), params.cuckoo_seeds, V, qh, ql,
+                                   np.ones(len(qh), dtype=bool))
+        else:
+            x = lockstep_lower_bound(params.vocab_hi.numpy(), params.vocab_lo.numpy(), qh, ql)
+        return x.reshape(hi.shape), hi, lo
 
     for j in range(k - 1):
         push(w0 + j)

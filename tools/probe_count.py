@@ -1,44 +1,44 @@
 #!/usr/bin/env python3
-"""Probe of the k-mer count kernel (``csrc/count_spectra.cu``), on one CUDA
-card.
+"""Probe of the k-mer count kernel (``csrc/count_spectra.cu`` with
+``csrc/wide_lookup.cuh``), on one CUDA card.
 
 Run from the root of a checkout: ``python3 tools/probe_count.py [--parent
 DIR]``.  It needs the CUDA toolkit (``nvcc``); the package's kernels build
-into ``kpop_tpu_torch/_build`` as on first use, and the probe builds patched
-copies of the count source in a temporary directory.  ``--parent DIR``
-names a directory that holds an earlier ``count_spectra.cu`` with the
-earlier entry point (no index scratch; the caller zeroes the spectrum),
-timed beside the package's.
+into ``kpop_tpu_torch/_build`` as on first use, and the probe builds
+patched copies of the count source in a temporary directory.  ``--parent
+DIR`` names a directory that holds an earlier ``count_spectra.cu`` with its
+``wide_lookup.cuh`` (``git show <commit>:kpop_tpu_torch/csrc/<file>``),
+whose wide entry point takes the cuckoo table as ``build_cuckoo`` returns
+it and whose index scratch is ``B Wp`` ints, timed beside the package's.
 
-Inputs: ``chip_smoke.py`` phase 3's batch (128 read-like sets of 30,208
-bases, k = 10, a random vocabulary of 367,987 k-mers, seed 1), and a hot
-batch of the same shape whose every read set is one k-mer repeated.  It
-prints one JSON object:
+Inputs: those of ``tools/probe_bag.py`` (phase 3's batch at k = 16 on the
+cuckoo hash and on the sorted limbs and at k = 10 on the LUT, phase 4's
+real batch at k = 10 and at k = 16), and a hot batch of phase 3's shape
+whose every read set is one k-mer repeated (k = 10).  It prints one JSON
+object:
 
-- ``ptxas``: nvcc's register, shared-memory and spill report for the
-  package's source;
-- ``stages``: on each input, the device time of the lookup and of the
-  slice counts, from ``torch.profiler``;
 - ``times``: on each input, the median of 9 single calls between CUDA
-  events, in the order parent, package, package, parent, plain: the
-  package's kernels alone and its wrapper (``count_spectra``), the
-  parent's kernel alone on a zeroed spectrum and with its wrapper's
-  ``torch.zeros``, and the plain version;
-- ``grid``: each copy of the package's source built with other constants
-  (``SLICE_BYTES`` of counters a block, ``UNROLL`` chunks of indices a
-  thread loads at once) or with plain stores of the spectrum in place of
-  streaming ones, its median time alone and whether it equals the plain
-  version;
+  events, in the order parent, package, package, parent: each kernel's
+  launches alone on preallocated buffers and with its scratch and
+  spectrum allocated first (as called), the package's ``count_spectra``,
+  and whether each equals the plain version;
+- ``stages``: on each input, the device time of each launch (the lookup,
+  the slices, the memset of the counts) of the package's kernel and of the
+  parent's, from ``torch.profiler``;
+- ``variants``: on each input, the device time of each launch of copies of
+  the package's source: the stores alone (the slices write the spectrum
+  without reading an index), the slices with ``SLICE_BYTES`` of 64 KB and
+  with ``UNROLL`` 2, and whether each equals the plain version (the
+  stores alone do not);
+- ``ptxas``: nvcc's register and spill report for the package's source;
 - ``card``: the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
-import subprocess
+import shutil
 import sys
 import tempfile
 from pathlib import Path
@@ -48,185 +48,102 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 import chip_smoke  # noqa: E402
-from kpop_tpu_torch import _build  # noqa: E402
 from kpop_tpu_torch.ops import pipeline as pl  # noqa: E402
-
-B, L, V, D, C = chip_smoke.BATCH, 30_208, 367_987, 511, chip_smoke.N_CLASSES
-SOURCE = ROOT / "kpop_tpu_torch" / "csrc" / "count_spectra.cu"
-# (SLICE_BYTES, UNROLL, streaming stores); the package's is (96 KB, 4, True)
-GRID = ((96 * 1024, 4, True), (96 * 1024, 4, False), (96 * 1024, 1, True),
-        (64 * 1024, 4, True), (112 * 1024, 4, True), (200 * 1024, 4, True))
-CONSTANTS = ("constexpr int SLICE_BYTES = 96 * 1024;", "constexpr int UNROLL = 4;")
-# plain stores in place of the streaming ones
-PLAIN_STORES = (
-    ("__device__ __forceinline__ void put(float* p, float v) { __stcs(p, v); }",
-     "__device__ __forceinline__ void put(float* p, float v) { *p = v; }"),
-    ("__device__ __forceinline__ void put4(float* p, float4 v) { __stcs(reinterpret_cast<float4*>(p), v); }",
-     "__device__ __forceinline__ void put4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }"),
+from probe_bag import (  # noqa: E402
+    B, CSRC, L, build, median_ms, patched, real_inputs, stage_times, synthetic_inputs, vocab_of,
 )
-_P, _I = ctypes.c_void_p, ctypes.c_int
-PARENT_ARGS = (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P)
+
+VARIANTS = {
+    "stores_alone": [("    for (int w0 = threadIdx.x * RUN; w0 < n_row; w0 += UNROLL * CHUNK) {",
+                      "    for (int w0 = threadIdx.x * RUN; w0 < 0; w0 += UNROLL * CHUNK) {")],
+    "slice_64k": [("constexpr int SLICE_BYTES = 96 * 1024;", "constexpr int SLICE_BYTES = 64 * 1024;")],
+    "unroll_2": [("constexpr int UNROLL = 4;", "constexpr int UNROLL = 2;")],
+}
 
 
-def replace_once(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise RuntimeError(f"probe_count: {old!r} is not one line of the source")
-    return src.replace(old, new)
-
-
-def build(sources: dict, out_dir: str) -> tuple[dict, str]:
-    procs, paths = {}, {}
-    for i, (key, text) in enumerate(sources.items()):
-        src = Path(out_dir) / f"count_{i}.cu"
-        src.write_text(text)
-        paths[key] = f"{out_dir}/count_{i}.so"
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", str(src),
-               "-o", paths[key]]
-        procs[key] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True)
-    libs, report = {}, ""
-    for key, proc in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
-        fn = ctypes.CDLL(paths[key]).kpop_count_spectra
-        fn.argtypes = PARENT_ARGS if key == "parent" else _build._SIGNATURES["kpop_count_spectra"]
-        fn.restype = ctypes.c_int
-        libs[key] = fn
-        if key == "package":
-            report = out.strip()
-    return libs, report
-
-
-def launcher(fn, params, codes, parent: bool = False):
-    """A call of the library's kernels alone on preallocated buffers (the
-    parent's spectrum is zeroed outside the call)."""
+def count_launcher(fns, params, codes, parent: bool = False):
+    """The kernels' launches alone on preallocated buffers, and a call as
+    the wrapper makes it (scratch and spectrum allocated first)."""
     Bn, Ln = codes.shape
     W = Ln - params.k + 1
     Wp = -(-W // pl.COUNT_RUN) * pl.COUNT_RUN
-    scratch = torch.empty(Bn * Wp, dtype=torch.int32, device=codes.device)
-    out = torch.zeros((Bn, params.n_vocab), dtype=torch.float32, device=codes.device)
-    head = (codes.data_ptr(), Bn, Ln, params.k, int(params.canonical), params.base,
-            params.vocab_lut.data_ptr(), params.n_vocab)
-    tail = (out.data_ptr(),) if parent else (scratch.data_ptr(), out.data_ptr())
+    ints = Bn * Wp if parent else pl.count_scratch_ints(Bn, Ln, params.k)
+    scratch = torch.empty(ints, dtype=torch.int32, device=codes.device)
+    out = torch.empty((Bn, params.n_vocab), dtype=torch.float32, device=codes.device)
+    suffix, vocab = vocab_of(params, codes, parent)
+    fn = fns["kpop_count_spectra" + suffix]
+    head = (codes.data_ptr(), Bn, Ln, params.k, int(params.canonical), params.base, *vocab,
+            params.n_vocab)
 
-    def run():
-        err = fn(*head, *tail, torch.cuda.current_stream().cuda_stream)
+    def launch(s, o):
+        err = fn(*head, s.data_ptr(), o.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"kpop_count_spectra: CUDA error {err}")
-        return out
+            raise RuntimeError(f"kpop_count_spectra{suffix}: CUDA error {err}")
+        return o
 
-    return run, out
+    def wrapper():
+        return launch(torch.empty_like(scratch), torch.empty_like(out))
 
-
-def median_ms(fn, reps: int = 9, before=None) -> float:
-    if before:
-        before()
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if before:
-            before()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def stage_times(fn) -> dict | None:
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        m = re.search(r"count_\w+", ev.key)
-        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if m and dev_us:
-            out[m.group(0)] = out.get(m.group(0), 0.0) + dev_us / 5 / 1e3
-    return out or None
+    return (lambda: launch(scratch, out)), wrapper
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", help="directory holding an earlier count_spectra.cu")
+    ap.add_argument("--parent", help="directory holding an earlier count_spectra.cu and its "
+                    "wide_lookup.cuh")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_count: no CUDA device is visible", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    src = SOURCE.read_text()
+    src = (CSRC / "count_spectra.cu").read_text()
+    header = {"package": (CSRC / "wide_lookup.cuh").read_text()}
     sources = {"package": src}
-    for slice_bytes, unroll, streaming in GRID:
-        text = replace_once(src, CONSTANTS[0], f"constexpr int SLICE_BYTES = {slice_bytes};")
-        text = replace_once(text, CONSTANTS[1], f"constexpr int UNROLL = {unroll};")
-        for old, new in () if streaming else PLAIN_STORES:
-            text = replace_once(text, old, new)
-        sources[(slice_bytes, unroll, streaming)] = text
+    sources.update({name: patched(src, edits, name) for name, edits in VARIANTS.items()})
     if args.parent:
         sources["parent"] = (Path(args.parent) / "count_spectra.cu").read_text()
-    report = {"stages": {}, "times": {}, "grid": {}}
-    with tempfile.TemporaryDirectory() as td:
-        libs, report["ptxas"] = build(sources, td)
-        rng = np.random.default_rng(1)
-        params = chip_smoke.random_params(rng, dev, V, D, C)
-        codes = torch.as_tensor(chip_smoke.read_like_codes(rng, B, L), device=dev)
-        hot = torch.zeros_like(codes)
-        for name, batch in (("phase3", codes), ("hot", hot)):
-            want = pl.count_spectra_ref(params, batch)
-            run, out = launcher(libs["package"], params, batch)
-            run()
-            torch.cuda.synchronize()
-            times = {"package equals plain": bool(torch.equal(out, want))}
+        header["parent"] = (Path(args.parent) / "wide_lookup.cuh").read_text()
+    report = {"times": {}, "stages": {}, "variants": {}}
+    td = tempfile.mkdtemp()
+    try:
+        libs, report["ptxas"] = build(sources, td, "kpop_count_spectra", header)
+        inputs = synthetic_inputs(dev)
+        lut_params, lut_codes = inputs["phase3 k=10 LUT"]
+        inputs["hot k=10 LUT"] = (lut_params, torch.zeros_like(lut_codes))
+        inputs.update(real_inputs(dev))
+        for name, (params, codes) in inputs.items():
+            want = pl.count_spectra_ref(params, codes)
+            alone, wrapper = count_launcher(libs["package"], params, codes)
+            times = {"package equals plain": bool(torch.equal(alone(), want))}
+            runs = {"package": (alone, wrapper)}
+            order = ["package", "package"]
             if args.parent:
-                old, old_out = launcher(libs["parent"], params, batch, parent=True)
-
-                def old_wrapper():
-                    old_out.zero_()
-                    old()
-
-                old_wrapper()
-                torch.cuda.synchronize()
-                times["parent equals plain"] = bool(torch.equal(old_out, want))
-            order = (["parent", "package", "package", "parent"] if args.parent
-                     else ["package", "package"]) + ["plain"]
+                runs["parent"] = count_launcher(libs["parent"], params, codes, parent=True)
+                times["parent equals plain"] = bool(torch.equal(runs["parent"][0](), want))
+                order = ["parent", "package", "package", "parent"]
             for who in order:
+                times.setdefault(who + " alone ms", []).append(median_ms(runs[who][0]))
+                times.setdefault(who + " as called ms", []).append(median_ms(runs[who][1]))
                 if who == "package":
-                    times.setdefault("package kernels alone", []).append(median_ms(run))
-                    times.setdefault("package wrapper", []).append(
-                        median_ms(lambda: pl.count_spectra(params, batch)))
-                elif who == "parent":
-                    times.setdefault("parent kernel alone", []).append(
-                        median_ms(old, before=old_out.zero_))
-                    times.setdefault("parent kernel + torch.zeros", []).append(
-                        median_ms(lambda: (torch.zeros_like(old_out), old())))
-                else:
-                    times["plain"] = [median_ms(lambda: pl.count_spectra_ref(params, batch),
-                                                reps=3)]
+                    times.setdefault("count_spectra ms", []).append(
+                        median_ms(lambda: pl.count_spectra(params, codes)))
             report["times"][name] = times
-            report["stages"][name] = stage_times(run)
-            grid = []
-            for slice_bytes, unroll, streaming in GRID:
-                g, g_out = launcher(libs[(slice_bytes, unroll, streaming)], params, batch)
-                g()
-                torch.cuda.synchronize()
-                grid.append(dict(slice_bytes=slice_bytes, unroll=unroll,
-                                 streaming_stores=streaming, ms=median_ms(g),
-                                 equal=bool(torch.equal(g_out, want))))
-                print(json.dumps({name: grid[-1]}), flush=True)
-            report["grid"][name] = grid
-            print(json.dumps({name: [times, report["stages"][name]]}), flush=True)
-            del want
+            report["stages"][name] = {who: stage_times(r[0], r"count_\w+|[Mm]emset")
+                                      for who, r in runs.items()}
+            variants = {}
+            for vname in VARIANTS:
+                v, _ = count_launcher(libs[vname], params, codes)
+                variants[vname] = dict(stages=stage_times(v, r"count_\w+"),
+                                       equal=bool(torch.equal(v(), want)))
+            report["variants"][name] = variants
+            print(json.dumps({name: [times, report["stages"][name], variants]}), flush=True)
+            del want, runs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
     report["card"] = chip_smoke.card_line()
     print(json.dumps(report))
     return 0
