@@ -36,7 +36,14 @@ prints no result.  It imports nothing of JAX or of the JAX package
    bag within the bag's tolerances and the float64 check, each bag input
    with the regime its accumulate takes, and the wide bag's row with one
    ``F.embedding_bag`` call on the rows of the plain wide lookup as its
-   yardstick;
+   yardstick; the Gram's blocked call of the streamed fit (the same table in
+   the row blocks of phase 4's streamed fits, accumulated) against the
+   one-launch Gram, its plain version and numpy, and at phase 7's block
+   rows against its plain version; the bag on bf16 rows at the slice's batch (k=10)
+   and at k=16 on the cuckoo hash, against its plain version on the bf16
+   twister and a float64 bag of the bf16 values, with ``F.embedding_bag`` on
+   the bf16 rows as its yardstick; the dense route's bf16 product (f32
+   output) against its plain version;
 4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
    tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
    at 1x coverage; vocabulary ~368k, d=511), trained on the card
@@ -47,10 +54,22 @@ prints no result.  It imports nothing of JAX or of the JAX package
    with parameters built around the device twister: top-1 accuracy >= 0.95
    on each, every kernel launched, each route's device time a batch,
    distances within 1e-4 of the host float64 chain, and the serving rate;
+   the same table fitted again on the streamed path with its budget forced
+   (STREAM_BLOCKS row blocks, phi on the host and on the card), within
+   tests/test_dd.py's bounds of ``fit_ca``, its sv within 1e-10 of the
+   resident fit's, its device memory within the budget, its uploads from
+   pinned memory; the same on the u16 wire (the table x 257) and on the f64
+   wire (the weighted table, not exactly f32), each held to ``fit_ca`` and
+   to its own resident fit; then both routes
+   served with a bf16 twister cast from the streamed fit's: accuracy >= 0.95
+   on each, distances within 2e-2 x max(1, |x|) of the f32 route, no f32
+   copy of the twister;
 5. cli: the README quick start trained by ``kpop-twist-torch`` with its
    default backend (the device CA), then through ``bin/kpop-classify-torch``
-   and ``kpop-twistdb-torch -s``, 0 misclassified of 100 on each, the
-   summaries within 2e-4 of ``kpop-twistdb``'s host float64 lines, and
+   (also with ``--dtype bf16``, its lines within 2e-2 x max(1, |x|) of the
+   f32 run's) and ``kpop-twistdb-torch -s``, 0 misclassified of 100 on
+   each, the summaries within 2e-4 of ``kpop-twistdb``'s host float64
+   lines, and
    ``kpop-countdb-torch --distances`` against ``kpop-countdb``'s host
    distances; the three tools run in this process without ``--backend``
    and must launch their kernels on the card;
@@ -64,12 +83,16 @@ prints no result.  It imports nothing of JAX or of the JAX package
    tile, as ``kpop-countdb --distances --backend pallas`` computes them,
    against float64 on the card;
 7. large k: phase 4's genomes counted at k=16 (vocabulary 1,011,930),
-   trained on the card (``phi="device"``), parameters built around the
-   device twister with the cuckoo hash, phase 4's held-out read sets
-   served on both routes: top-1 accuracy >= 0.95 on each, the wide count,
-   the wide bag and the tile launched, each route's device time a batch,
-   and the first batch within 1e-4 of the host float64 chain through the
-   same fit with phi on the host.
+   trained on the card on the streamed path with the budget forced (phi on
+   the host, then ``phi="device"``), parameters built around the device
+   twister with the cuckoo hash, phase 4's held-out read sets served on
+   both routes: top-1 accuracy >= 0.95 on each, the wide count, the wide
+   bag and the tile launched, each route's device time a batch, and the
+   first batch within 1e-4 of the host float64 chain through the fit with
+   phi on the host; then the twister cast to bf16 serves the bag route at
+   accuracy >= 0.95, and the same bf16 parameters built from the host
+   twister (as ``kpop-classify-torch --dtype bf16`` builds them) take less
+   device memory than an f32 twister and equal the card's cast bit for bit.
 
 The kernel table is printed as one JSON line, then the card's name and
 power limit, and last the result line
@@ -126,6 +149,21 @@ LARGE_K_VOCAB = 1_011_930
 LARGE_K_KERNELS = ("kpop_count_spectra_wide", "kpop_embedding_bag_wide", "kpop_pairwise_dist")
 # the device CA against the host float64 fit_ca: tests/test_dd.py:81-84
 CA_BOUNDS = dict(sv=1e-8, inertia=1e-8, coords=1e-6, twister=1e-5)
+# the streamed CA fit: the budget forced so that the table streams in
+# STREAM_BLOCKS row blocks (at least STREAM_BLOCKS_MIN), its sv within
+# STREAM_SV_RTOL of the resident fit's largest (only the order of the
+# Gram's float64 sums differs)
+STREAM_BLOCKS, STREAM_BLOCKS_MIN, STREAM_SV_RTOL = 10, 8, 1e-10
+# bf16 twisters: a route's distances within BF16_BOUND * max(1, |x|) of the
+# f32 route's (tests/test_cli_extras.py:429); F.embedding_bag on bf16 rows
+# rounds its weights and its output to bf16 (2^-9 each), so it is held to
+# the plain version within BF16_LIBRARY_RTOL of its largest value; the bf16
+# product with an f32 output against the f32 product of the widened values
+# within BF16_PRODUCT_RTOL of its largest value (the same exact products,
+# summed in f32 in another order over 367,987 terms)
+BF16_BOUND = 2e-2
+BF16_LIBRARY_RTOL = 1e-2
+BF16_PRODUCT_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -271,7 +309,7 @@ def bag_errors(params, codes, what: str) -> tuple[float, float]:
     return err, plain_err
 
 
-def bag_library_call(params, codes, want):
+def bag_library_call(params, codes, want, rtol: float = LIBRARY_RTOL):
     """One PyTorch call that computes the bag's function, as its yardstick:
     ``F.embedding_bag`` (mode sum) over the rows the plain lookup gives,
     weighted by 1 / n_known per read set.  Held to the plain version
@@ -291,10 +329,11 @@ def bag_library_call(params, codes, want):
     per_row = known.sum(dim=1)
     offsets = torch.cumsum(per_row, 0) - per_row
     weights = (1.0 / torch.clamp(per_row, min=1).float()).repeat_interleave(per_row)
+    weights = weights.to(params.twister.dtype)
     call = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
         flat, params.twister, offsets, mode="sum", per_sample_weights=weights)
-    lib_err = float((call() - want).abs().max())
-    if not lib_err <= LIBRARY_RTOL * float(want.abs().max()):
+    lib_err = float((call().float() - want).abs().max())
+    if not lib_err <= rtol * float(want.abs().max()):
         raise AssertionError(f"F.embedding_bag does not compute the bag's function: {lib_err:.3g}")
     sets = torch.arange(codes.shape[0], device=codes.device)[:, None].expand_as(idx)[known]
     entries = int(torch.unique(flat * pl.BAG_GROUP + sets % pl.BAG_GROUP).numel())
@@ -314,6 +353,98 @@ def bag_two_groups(params, rng, L: int) -> None:
     err, plain_err = bag_errors(params, codes, "at [130, %d]" % L)
     log("kernel embedding_bag at [130, %d] (two passes, the second of 2 read sets): "
         "max abs err to float64 %.3g, plain version %.3g" % (L, err, plain_err))
+
+
+def bf16_of(params):
+    """The same classifier parameters with the twister cast to bf16 on its
+    device: the only copy made."""
+    import torch
+
+    from kpop_tpu_torch.ops.pipeline import ClassifierParams
+
+    return ClassifierParams(
+        params.vocab_lut, params.twister.to(torch.bfloat16), params.metric,
+        params.class_coords, params.class_norms, k=params.k, canonical=params.canonical,
+        base=params.base, vocab_hi=params.vocab_hi, vocab_lo=params.vocab_lo,
+        cuckoo=params.cuckoo, cuckoo_seeds=params.cuckoo_seeds)
+
+
+def bag_bf16_row(params, codes, table, shape: str, replaces: str, launch: str, path: str) -> dict:
+    """The bag on the same inputs with the twister cast to bf16: held to
+    its plain version on the bf16 twister and to a float64 bag of the bf16
+    values (``bag_errors``), and off the f32 twister's bag by more than the
+    bag's tolerance (it read the bf16 rows, not f32 ones); its regime, its
+    time, its bound with each hit row read once at 2 d bytes, and
+    ``F.embedding_bag`` on the bf16 rows as the library yardstick.
+    ``table`` is the vocabulary the kernel reads (the LUT or the cuckoo
+    table)."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    f32_bag = pl.project_reads(params, codes)
+    pb = bf16_of(params)
+    err, plain_err = bag_errors(pb, codes, "bf16 at " + shape)
+    got = pl.project_reads(pb, codes)
+    want = pl.project_reads_ref(pb, codes)
+    moved = float((got - f32_bag).abs().max())
+    if not moved > BAG_ATOL + BAG_RTOL * float(f32_bag.abs().max()):
+        raise AssertionError(f"bf16 bag at {shape} equals the f32 twister's bag ({moved:.3g}): "
+                             "it did not read bf16 rows")
+    lib, n_known, hit, entries, tiles = bag_library_call(pb, codes, want, rtol=BF16_LIBRARY_RTOL)
+    d = pb.twister.shape[1]
+    log("kernel embedding_bag bf16 at %s: %d known windows, %d distinct rows, %d entries in %d "
+        "tiles: the %s regime; max abs err to float64 of the bf16 values %.3g, plain version "
+        "%.3g; %.3g off the f32 twister's bag"
+        % (shape, n_known, hit, entries, tiles, pl.bag_regime(entries, tiles), err, plain_err, moved))
+    row = dict(
+        bound(codes.nbytes + table.nbytes + hit * d * 2 + got.nbytes,
+              float(n_known) * d / F32_FLOPS * 1e3),
+        library_ms=time_ms(lib, reps=5),
+        err=float((got - want).abs().max()), err_f64=err, plain_err_f64=plain_err,
+        ms=time_ms(lambda: pl.project_reads(pb, codes), reps=5),
+        plain_ms=time_ms(lambda: pl.project_reads_ref(pb, codes), reps=3),
+        shape=shape + ", bf16 twister",
+        tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL} of the plain version on the bf16 twister; err to "
+            f"float64 <= {F64_ERR_RATIO:g}x the plain version's",
+        source="kpop_tpu_torch/csrc/embedding_bag.cu", replaces=replaces, launch=launch, path=path,
+    )
+    del pb, got, want, f32_bag, lib
+    torch.cuda.empty_cache()
+    return row
+
+
+def bf16_product_check(spectra, twister) -> None:
+    """The dense route's bf16 product (``pipeline.bf16_product``: one
+    ``aten::mm.dtype`` GEMM, bf16 operands, f32 output) against its plain
+    version (the f32 product of the widened values) within
+    BF16_PRODUCT_RTOL of its largest value, with both errors to a float64
+    product of the same bf16 values and the times of both beside the f32
+    route's SGEMM.  A card whose torch has no ``aten::mm.dtype`` fails."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    if not hasattr(torch.ops.aten.mm, "dtype"):
+        raise AssertionError("this torch has no aten::mm.dtype: the bf16 product has no kernel")
+    a, b = spectra.to(torch.bfloat16), twister.to(torch.bfloat16)
+    got = pl.bf16_product(a, b)
+    want = pl.bf16_product_ref(a, b)
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+    err = float((got - want).abs().max())
+    if got.dtype != torch.float32 or not err <= BF16_PRODUCT_RTOL * scale:
+        raise AssertionError(f"bf16 product {got.dtype}: max abs {err:.3g} off the plain version")
+    errs = [float((t.double() - exact).abs().max()) for t in (got, want)]
+    del exact
+    ms = time_ms(lambda: pl.bf16_product(a, b))
+    plain_ms = time_ms(lambda: pl.bf16_product_ref(a, b), reps=5)
+    sgemm_ms = time_ms(lambda: spectra @ twister, reps=5)
+    log("bf16 product [%d, %d] x [%d, %d] (aten::mm.dtype, f32 output): max abs %.3g to plain "
+        "(bound %g of max |x| %.6g); to float64 %.3g, plain %.3g; %.4f ms, plain %.4f ms, the "
+        "f32 route's SGEMM %.4f ms"
+        % (*a.shape, *b.shape, err, BF16_PRODUCT_RTOL, scale, errs[0], errs[1], ms, plain_ms,
+           sgemm_ms))
 
 
 def bound(nbytes: float, flops_ms: float) -> dict:
@@ -524,11 +655,17 @@ def poisson_table(K: int, ns: int, lam: float, seed: int) -> np.ndarray:
     return out
 
 
-def gram_row(dev) -> dict:
+def gram_row(dev) -> tuple[dict, dict]:
     """The residual-Gram kernel at the headline training shape against its
     plain version and a numpy float64 Gram of the same residual, each
     within GRAM_RTOL of the largest |G|; timed with the plain version and,
-    as the yardstick, one cuBLAS DGEMM S^T S on a pre-built float64 S."""
+    as the yardstick, one cuBLAS DGEMM S^T S on a pre-built float64 S.
+    Then the streamed fit's blocked call: the same table in the row blocks
+    that phase 4's streamed fits take (:func:`stream_geometry`), each launch
+    adding its Gram into G, held within GRAM_RTOL of the one-launch Gram
+    and of numpy and against the plain version's blocks (``G +=
+    residual_gram_ref``), and at phase 7's block rows against the plain
+    blocks.  Returns the two rows."""
     import torch
 
     from kpop_tpu_torch.ops import gram
@@ -586,9 +723,62 @@ def gram_row(dev) -> dict:
         replaces="kpop_tpu/parallel/sharded.py:174",
         launch="kpop_ca_gram", path="train",
     )
-    del x, vecs, got, plain, again
+    # the blocked call at the streamed fits' own geometry, on views of the
+    # resident table (the upload is the streamed fit's, phase 4): phase 4's
+    # blocks over the whole table (the headline has GRAM_K rows), and phase
+    # 7's block rows over the whole blocks that fit in it
+    _, step = stream_geometry(K, ns, "u8", dev)
+    _, wide_step = stream_geometry(LARGE_K_VOCAB, ns, "u8", dev)
+
+    def blocked(fn, rows: int = step, end: int = K):
+        G = torch.zeros((ns, ns), dtype=torch.float64, device=dev)
+        for i in range(0, end, rows):
+            j = min(end, i + rows)
+            fn(x[i:j], vecs[0][i:j], vecs[1][i:j], vecs[2], vecs[3], G)
+        return G
+
+    def kernel_block(xb, a, uu, b, vv, G):
+        gram.residual_gram(xb, a, uu, b, vv, out=G)
+
+    def plain_block(xb, a, uu, b, vv, G):
+        G += gram.residual_gram_ref(xb, a, uu, b, vv)
+
+    n_blocks = -(-K // step)
+    gb, gb_plain = blocked(kernel_block), blocked(plain_block)
+    wide_end = (K // wide_step) * wide_step
+    gw, gw_plain = (blocked(fn, wide_step, wide_end) for fn in (kernel_block, plain_block))
+    torch.cuda.synchronize()
+    gbn = gb.cpu().numpy()
+    rel_one = float(np.abs(gbn - g).max()) / scale
+    rel_f64_b = float(np.abs(gbn - want).max()) / scale
+    rel_plain_b = float(np.abs(gbn - gb_plain.cpu().numpy()).max()) / scale
+    rel_wide = float((gw - gw_plain).abs().max() / gw_plain.abs().max())
+    log("kernel ca_gram in %d blocks of %d rows (phase 4's), accumulated: max |G - one launch| "
+        "%.3g, |G - plain blocks| %.3g, |G - numpy float64| %.3g of max |G|; bit-identical on a "
+        "second call %s; in %d blocks of %d rows (phase 7's): |G - plain blocks| %.3g of max |G|"
+        % (n_blocks, step, rel_one, rel_plain_b, rel_f64_b,
+           bool(torch.equal(gb, blocked(kernel_block))), wide_end // wide_step, wide_step,
+           rel_wide))
+    if not max(rel_one, rel_f64_b, rel_plain_b, rel_wide) <= GRAM_RTOL:
+        raise AssertionError(f"blocked ca_gram off: {rel_one:.3g} to one launch, {rel_f64_b:.3g} "
+                             f"to numpy, {rel_plain_b:.3g} to plain, {rel_wide:.3g} to plain at "
+                             f"phase 7's blocks (bound {GRAM_RTOL:g})")
+    blocked_row = dict(
+        row,
+        # G read and written once more a block
+        **bound(nbytes + 2 * (n_blocks - 1) * got.nbytes,
+                (K * ns * (ns + 1.0) / F64_TC_FLOPS + 3.0 * K * ns / F64_FLOPS) * 1e3),
+        err=float(np.abs(gbn - gb_plain.cpu().numpy()).max()), err_f64=rel_f64_b * scale,
+        plain_err_f64=float(np.abs(gb_plain.cpu().numpy() - want).max()),
+        ms=time_ms(lambda: blocked(kernel_block)),
+        plain_ms=time_ms(lambda: blocked(plain_block), reps=5),
+        shape=f"[{K}, {ns}] u8 Poisson({GRAM_LAMBDA:g}) table in {n_blocks} blocks of {step} rows",
+        tol=f"rel {GRAM_RTOL:g} of max |G| to one launch, to plain blocks and to numpy float64",
+        path="train_streamed", block_rows=step, wide_block_rows=wide_step,
+    )
+    del x, vecs, got, plain, again, gb, gb_plain, gw, gw_plain
     torch.cuda.empty_cache()
-    return row
+    return row, blocked_row
 
 
 def count_check(params, codes, what: str):
@@ -807,6 +997,9 @@ def wide_rows(dev, rng, codes, d: int) -> dict:
             source="kpop_tpu_torch/csrc/embedding_bag.cu", launch="kpop_embedding_bag_wide",
             **common)
         del bag, want, bag_lib
+        rows["embedding_bag_wide_bf16"] = bag_bf16_row(
+            params, c, table, what, "kpop_tpu/ops/pipeline.py:237 with :165-176",
+            "kpop_embedding_bag_wide", "large_k_bf16")
     del blocks, twister
     torch.cuda.empty_cache()
     return rows
@@ -842,6 +1035,8 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         replaces="kpop_tpu/ops/pipeline.py:179",
         launch="kpop_count_spectra", path="slice",
     )
+    # the dense route's product with the twister cast to bf16
+    bf16_product_check(got, params.twister)
     del got
 
     bag_err_f64, bag_plain_err_f64 = bag_errors(params, codes, "at the slice's batch")
@@ -873,6 +1068,9 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         launch="kpop_embedding_bag", path="slice",
     )
     del bag_lib
+    rows["embedding_bag_bf16"] = bag_bf16_row(
+        params, codes, params.vocab_lut, f"[{B}, {L}] int8 codes, k={K}, twister [{V}, {d}]",
+        "kpop_tpu/ops/pipeline.py:237", "kpop_embedding_bag", "slice_bf16")
     rows.update(wide_rows(dev, np.random.default_rng(7), codes, d))
 
     # the distance tile at four shapes.  The slice's: [B, d] twisted reads
@@ -931,7 +1129,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     rows["row_digest"] = digest_row(dev, flagship)
     del flagship
     torch.cuda.empty_cache()
-    rows["ca_gram"] = gram_row(dev)
+    rows["ca_gram"], rows["ca_gram_streamed"] = gram_row(dev)
     for name, r in rows.items():
         log(
             "kernel %-26s %s: max abs err %.3g (%s); kernel %.4f ms, plain "
@@ -1056,19 +1254,19 @@ def device_ms_by_kernel(fn) -> dict:
     return out
 
 
-def serve_routes(label: str, params, batches, kernels) -> tuple:
-    """The main path: the read sets served on the dense and the bag route,
-    every launch count set to 0 just before and read just after, each of
-    ``kernels`` launched; finite [read sets, classes] distances and top-1
-    accuracy >= ACCURACY_GATE on each route; then each route's device time
-    a batch and its largest kernels.  Returns (distance blocks by route,
-    launches, accuracy, device ms a batch)."""
+def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag")) -> tuple:
+    """The main path: the read sets served on the dense and the bag route
+    (or ``paths``), every launch count set to 0 just before and read just
+    after, each of ``kernels`` launched; finite [read sets, classes]
+    distances and top-1 accuracy >= ACCURACY_GATE on each route; then each
+    route's device time a batch and its largest kernels.  Returns (distance
+    blocks by route, launches, accuracy, device ms a batch)."""
     from kpop_tpu_torch import _build
     from kpop_tpu_torch.cli.classify import DeviceStep
 
     for name in _build.LAUNCHES:
         _build.LAUNCHES[name] = 0
-    dmats = {path: serve(DeviceStep(params, path), batches) for path in ("dense", "bag")}
+    dmats = {path: serve(DeviceStep(params, path), batches) for path in paths}
     launches = dict(_build.LAUNCHES)
     log("%s: kernel launches on the main path: %s" % (label, json.dumps(launches)))
     missing = [name for name in kernels if launches[name] == 0]
@@ -1086,7 +1284,7 @@ def serve_routes(label: str, params, batches, kernels) -> tuple:
         if accuracy[path] < ACCURACY_GATE:
             raise AssertionError(f"{label}, {path}: accuracy {accuracy[path]} < {ACCURACY_GATE}")
     busy = {}
-    for path in ("dense", "bag"):
+    for path in paths:
         by_kernel = device_ms_by_kernel(lambda: serve(DeviceStep(params, path), batches))
         busy[path] = sum(by_kernel.values()) / len(batches)
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
@@ -1131,6 +1329,148 @@ def ca_errors(coords, inertia, twister, sv, host) -> dict:
             err["twister"], float(np.abs(tw[:, j].astype(np.float64) - sign * host.twister[j]).max())
         )
     return err
+
+
+def stream_geometry(nk: int, ns: int, kind: str, dev) -> tuple[int, int]:
+    """The budget forced on a streamed fit of a ``[nk, ns]`` table on the
+    ``kind`` wire with phi on the host, so that it streams in STREAM_BLOCKS
+    row blocks, and the rows a block that ``ca_fit_sharded`` takes within
+    it (``LAST_CA_STREAM["block_rows"]``)."""
+    from kpop_tpu_torch.ops import gram
+    from kpop_tpu_torch.parallel import sharded
+
+    d = min(nk, ns) - 1
+    step = (64 << 20) // (ns * 8)  # phi's sub-blocks: ca_fit_sharded's default block_bytes
+    args = (ns, d, sharded.WIRE_BYTES[kind], step, gram._sm_count(dev))
+    budget = sharded._stream_footprint(-(-nk // STREAM_BLOCKS), *args)
+    return budget, sharded._stream_block_rows(budget, nk, *args)
+
+
+def streamed_fits(dev, table, col_w, label: str, host=None, sv_resident=None,
+                  show_copies: bool = False, kind: str = "u8") -> dict:
+    """The table fitted again on the streamed path, its budget forced so
+    that it streams in STREAM_BLOCKS row blocks: with phi on the host, then
+    with the twister on the card, whose budget adds the twister's bytes, so
+    that both take the same blocks.  Each fit's device memory above what
+    was live before it stays within its budget; both streamed at least
+    STREAM_BLOCKS_MIN blocks; the card's twister is the host fit rounded to
+    f32 and the other outputs are equal; with ``host`` the fit is within
+    CA_BOUNDS of host ``fit_ca``, with ``sv_resident`` its sv within
+    STREAM_SV_RTOL of the resident fit's.  ``kind`` is the wire the table
+    must take.  With ``show_copies`` the device
+    fit runs once more under torch.profiler, where the blocks' uploads
+    must show as copies from pinned memory (the column vectors and V / sv,
+    a few MB, go up from pageable memory once a pass).  Returns the device fit's outputs and
+    launches (every count set to 0 just before it and read just after),
+    the host fit's float64 twister, and the geometry, walls and peaks."""
+    import torch
+
+    from kpop_tpu_torch import _build
+    from kpop_tpu_torch.parallel import sharded
+
+    nk, ns = table.shape
+    d = min(nk, ns) - 1
+    budget, rows = stream_geometry(nk, ns, kind, dev)
+    out = {}
+    for phi, limit in (("host", budget), ("device", budget + nk * d * 4)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for name in _build.LAUNCHES:
+            _build.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        fit = sharded.ca_fit_sharded(table, col_weights=col_w, phi=phi, device=dev,
+                                     hbm_bytes=limit)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - live
+        st = dict(sharded.LAST_CA_STREAM or {})
+        log("%s: streamed fit, phi on the %s: %s; %.3f s: %s; peak device memory %d B above the "
+            "%d B live before, budget %d B; kpop_ca_gram launched %d times"
+            % (label, phi, json.dumps(st), wall,
+               ", ".join("%s %.4f s" % kv for kv in sharded.LAST_CA_PHASES.items()),
+               peak, live, limit, _build.LAUNCHES["kpop_ca_gram"]))
+        if st.get("n_blocks", 0) < STREAM_BLOCKS_MIN or sharded.LAST_DD_UPLOAD != kind \
+                or st["block_rows"] != rows:
+            raise AssertionError(f"{label}: the fit with phi on the {phi} did not stream in "
+                                 f"{STREAM_BLOCKS_MIN} blocks of {rows} rows on the {kind} "
+                                 f"wire: {st}")
+        if peak > limit:
+            raise AssertionError(f"{label}: streamed fit used {peak} B above the {limit} B budget")
+        out[phi] = dict(fit=fit, stream=st, wall=wall, phases=dict(sharded.LAST_CA_PHASES),
+                        peak=peak, budget=limit, launches=dict(_build.LAUNCHES))
+    (c_h, i_h, tw_h, sv_h), (c_d, i_d, tw_d, sv_d) = out["host"]["fit"], out["device"]["fit"]
+    tw64 = torch.from_numpy(np.ascontiguousarray(tw_h.T))
+    rounded = torch.equal(tw_d.cpu(), tw64.float())
+    same = all(np.array_equal(a, b) for a, b in ((c_h, c_d), (i_h, i_d), (sv_h, sv_d)))
+    same_blocks = out["host"]["stream"]["block_rows"] == out["device"]["stream"]["block_rows"]
+    if not (rounded and same and same_blocks):
+        raise AssertionError(f"{label}: the streamed device twister is not the streamed host fit "
+                             f"rounded to f32 ({rounded}, outputs equal {same}, same blocks "
+                             f"{same_blocks})")
+    res = dict(coords=c_d, inertia=i_d, phi_dev=tw_d, sv=sv_d, tw64=tw_h,
+               launches=out["device"]["launches"],
+               **{f"{phi}_{k}": out[phi][k] for phi in out for k in ("stream", "wall", "phases",
+                                                                     "peak", "budget")})
+    if host is not None:
+        ca_err = ca_errors(c_h, i_h, tw64, sv_h, host)
+        bad = {k: v for k, v in ca_err.items() if not v <= CA_BOUNDS[k]}
+        log("%s: streamed fit vs host fit_ca, max abs: %s; bounds %s"
+            % (label, json.dumps(ca_err), json.dumps(CA_BOUNDS)))
+        if bad:
+            raise AssertionError(f"{label}: streamed fit off the host float64 fit: {bad}")
+        res["ca_err"] = ca_err
+    if sv_resident is not None:
+        rel = float(np.abs(sv_h - sv_resident).max() / np.abs(sv_resident).max())
+        log("%s: streamed sv vs the resident fit's: %.3g of the largest (bound %g)"
+            % (label, rel, STREAM_SV_RTOL))
+        if not rel <= STREAM_SV_RTOL:
+            raise AssertionError(f"{label}: streamed sv {rel:.3g} off the resident fit")
+        res["sv_rel"] = rel
+    log("%s: the streamed device twister is the streamed host fit rounded to f32, its other "
+        "outputs equal, on the same %d blocks" % (label, res["device_stream"]["n_blocks"]))
+    if show_copies:
+        by_kernel = device_ms_by_kernel(lambda: sharded.ca_fit_sharded(
+            table, col_weights=col_w, phi="device", device=dev, hbm_bytes=out["device"]["budget"]))
+        copies = {k: v for k, v in by_kernel.items() if k.startswith("Memcpy HtoD")}
+        log("%s: streamed fit's copies to the card, device ms: %s; its Gram launches %.4f ms"
+            % (label, json.dumps(copies), sum(v for k, v in by_kernel.items() if "gram_tile" in k)))
+        if not any("Pinned" in k for k in copies):
+            raise AssertionError(f"{label}: no upload of the streamed fit was pinned: {copies}")
+    return res
+
+
+def bf16_serving(label: str, params, batches, dmats, kernels, paths) -> dict:
+    """The read sets served on ``paths`` with parameters around a bf16
+    twister: the main path of serve_routes (every count set to 0 just
+    before, read just after; accuracy >= ACCURACY_GATE), each route's
+    distances within BF16_BOUND * max(1, |x|) of the f32 route's
+    ``dmats``, and the device memory the serving takes above what was live
+    below the f32 twister's bytes (no f32 copy of the twister)."""
+    import torch
+
+    if params.twister.dtype != torch.bfloat16:
+        raise AssertionError(f"{label}: the twister is {params.twister.dtype}, not bf16")
+    f32_bytes = params.twister.numel() * 4
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, launches, accuracy, busy = serve_routes(label, params, batches, kernels, paths)
+    peak = torch.cuda.max_memory_allocated() - live
+    err = {}
+    for path in paths:
+        a, b = np.concatenate(got[path]), np.concatenate(dmats[path])
+        err[path] = float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+    log("%s: bf16 twister %.1f MB (f32 %.1f MB); serving took %.1f MB above what was live; "
+        "distances off the f32 route's by at most %s x max(1, |x|) (bound %g)"
+        % (label, params.twister.nbytes / 1e6, f32_bytes / 1e6, peak / 1e6, json.dumps(err),
+           BF16_BOUND))
+    if peak >= f32_bytes:
+        raise AssertionError(f"{label}: bf16 serving took {peak} B, an f32 twister's {f32_bytes}")
+    if max(err.values()) > BF16_BOUND:
+        raise AssertionError(f"{label}: bf16 distances off the f32 route: {err}")
+    return dict(launches=launches, accuracy=accuracy, busy=busy, err=err, peak=peak)
 
 
 def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
@@ -1213,6 +1553,22 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
         raise AssertionError(f"device CA off the host float64 fit: {bad}, f32 rounding {rounded}, "
                              f"outputs equal {same}")
     del tw64
+    # the same fit streamed, its budget forced (the train_streamed path)
+    streamed = streamed_fits(dev, table, col_w, "slice", host=ca, sv_resident=sv64,
+                             show_copies=True)
+    # the other wires on the same path, each the same CA as the host
+    # reference and held to it and to its own resident fit: the table x 257
+    # on the u16 wire (its column weights / 257), and the weighted table
+    # itself, not exactly f32, on the f64 wire (no column weights)
+    for kind, wire_table, w in (("u16", table.astype(np.uint16) * np.uint16(257), col_w / 257.0),
+                                ("f64", table * col_w[None, :], None)):
+        _, _, _, sv_res = sharded.ca_fit_sharded(wire_table, col_weights=w, device=dev)
+        if sharded.LAST_DD_UPLOAD != kind or sharded.LAST_CA_STREAM is not None:
+            raise AssertionError(f"slice {kind}: the resident fit took the "
+                                 f"{sharded.LAST_DD_UPLOAD} wire, streamed {sharded.LAST_CA_STREAM}")
+        streamed_fits(dev, wire_table, w, f"slice {kind}", host=ca, sv_resident=sv_res,
+                      show_copies=True, kind=kind)
+        del wire_table
 
     # serving parameters around the device twister (bench.py:563-589), no
     # download and no re-upload
@@ -1225,6 +1581,11 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     n_seqs = sum(len(t) for t, _ in batches)
     width = max(len(s) for _, seqs in batches for s in seqs)
     dmats, launches, accuracy, _busy = serve_routes("slice", params, batches, SLICE_KERNELS)
+    # bf16 parameters around the streamed fit's device twister, both routes
+    params16 = params_around_twister(space, vocab_hex, streamed.pop("phi_dev"), streamed["inertia"],
+                                     streamed["coords"], dtype=torch.bfloat16)
+    bf16 = bf16_serving("slice bf16", params16, batches, dmats, SLICE_KERNELS, ("dense", "bag"))
+    del params16
 
     t0 = time.perf_counter()
     metric_vec = twister.metrics_vector(Metric.of_string("powers(1,1,2)"))
@@ -1249,7 +1610,9 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     return dict(launches=launches, train_launches=train_launches, accuracy=accuracy,
                 host_err=host_err, seqs_per_s=rates, vocab=params.n_vocab, d=d,
                 train_s=train_s, train_phases=phases, ca_err=ca_err, table=table,
-                genomes=genomes, batches=batches)
+                genomes=genomes, batches=batches, stream_launches=streamed["launches"],
+                stream_rows=streamed["device_stream"]["block_rows"],
+                bf16_launches=bf16["launches"])
 
 
 # ---------------- phase 5: the quick start through the CLI ---------------
@@ -1305,6 +1668,8 @@ def phase_cli() -> dict:
     serve = (
         "set -eo pipefail\n"
         "kpop-classify-torch -T Classes.5 -t Classes.5 -f test.fasta -o Test_prediction.5\n"
+        "kpop-classify-torch -T Classes.5 -t Classes.5 -f test.fasta --dtype bf16 "
+        "-o Test_prediction_bf16.5\n"
         # the relatedness tools: the test set twisted once, then summarized
         # against the classes, and the classes' spectral distances, by the
         # JAX tools' float64 host path
@@ -1335,7 +1700,7 @@ def phase_cli() -> dict:
             "countdb", ["-i", at("Classes.5"), "--distances", "~.", "~.", at("TorchD.5")],
             ("kpop_pairwise_dist",))
         lines = {}
-        for name in ("Test_prediction.5", "Torch.5", "Host.5"):
+        for name in ("Test_prediction.5", "Test_prediction_bf16.5", "Torch.5", "Host.5"):
             with open(os.path.join(td, name + ".KPopSummary.txt")) as f:
                 lines[name] = f.read().splitlines()
         dmats = {
@@ -1343,6 +1708,7 @@ def phase_cli() -> dict:
             for name in ("TorchD.5", "HostD.5")
         }
     for name, tool in (("Test_prediction.5", "kpop-classify-torch"),
+                       ("Test_prediction_bf16.5", "kpop-classify-torch --dtype bf16"),
                        ("Torch.5", "kpop-twistdb-torch -s")):
         if len(lines[name]) != 100:
             raise AssertionError(f"{tool}: {len(lines[name])} summaries, not 100")
@@ -1350,6 +1716,20 @@ def phase_cli() -> dict:
         log("cli: %s quick start: %d misclassified of %d" % (tool, wrong, len(lines[name])))
         if wrong:
             raise AssertionError(f"{tool}: {wrong} misclassified")
+    worst = 0.0
+    for j, (g, w) in enumerate(zip(lines["Test_prediction_bf16.5"], lines["Test_prediction.5"])):
+        pg, pw = g.split("\t"), w.split("\t")
+        bad = pg[0] != pw[0] or pg[5] != pw[5] or len(pg) != len(pw)
+        for i in range(1, len(pg) if not bad else 1):
+            if i >= 5 and (i - 5) % 3 == 0:
+                continue  # a target name: near-ties may swap below the first
+            a, b = float(pg[i]), float(pw[i])
+            worst = max(worst, abs(a - b) / max(1.0, abs(b)))
+            bad |= not abs(a - b) <= BF16_BOUND * max(1.0, abs(b))
+        if bad:
+            raise AssertionError(f"--dtype bf16 line {j}: {g[:300]!r}\nf32: {w[:300]!r}")
+    log("cli: kpop-classify-torch --dtype bf16 within %.3g x max(1, |x|) of the f32 run (bound %g), "
+        "same predicted classes" % (worst, BF16_BOUND))
     check_summaries(lines["Torch.5"], lines["Host.5"])
     log("cli: kpop-twistdb-torch -s within %g of kpop-twistdb's host "
         "summaries, same targets" % SUMMARY_BOUND)
@@ -1540,12 +1920,10 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
     f32)."""
     import torch
 
-    from kpop_tpu_torch import _build
     from kpop_tpu_torch.core.matrix import KPopMatrix, MatrixType, NamedMatrix
     from kpop_tpu_torch.core.space import Metric
     from kpop_tpu_torch.core.twister import Twister
-    from kpop_tpu_torch.ops.pipeline import params_around_twister
-    from kpop_tpu_torch.parallel import sharded
+    from kpop_tpu_torch.ops.pipeline import build_classifier_params, params_around_twister
 
     t0 = time.perf_counter()
     space, vocab_hex, table, _ = count_corpus(genomes, LARGE_K)
@@ -1554,26 +1932,50 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
         "(%.1f s)" % (LARGE_K, len(vocab_hex), LARGE_K_VOCAB, n_classes, time.perf_counter() - t0))
     csums = table.sum(axis=0)
     col_w = 1.0 / np.where(csums == 0.0, 1.0, csums)
-    for name in _build.LAUNCHES:
-        _build.LAUNCHES[name] = 0
+    # the streamed path, the budget forced: phi on the host (float64, the
+    # host chain's twister), then on the card, which must be that fit
+    # rounded to f32
     t0 = time.perf_counter()
-    coords, inertia, phi_dev, _sv = sharded.ca_fit_sharded(
-        table, col_weights=col_w, phi="device", device=dev
-    )
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    if not _build.LAUNCHES["kpop_ca_gram"]:
-        raise AssertionError("large k: the train path never launched the Gram kernel")
-    log("large k: device CA fit of [%d, %d], %.3f s: %s"
-        % (*table.shape, train_s, ", ".join("%s %.4f s" % kv for kv in sharded.LAST_CA_PHASES.items())))
-    t0 = time.perf_counter()
-    coords64, inertia64, tw64, _ = sharded.ca_fit_sharded(table, col_weights=col_w, device=dev)
+    fit = streamed_fits(dev, table, col_w, "large k")
     del table
-    rounded = torch.equal(phi_dev.cpu(), torch.from_numpy(np.ascontiguousarray(tw64.T)).float())
-    log("large k: the same fit with phi on the host (float64, the host chain's twister): the "
-        "card's twister is it rounded to f32: %s (%.1f s)" % (rounded, time.perf_counter() - t0))
-    if not rounded:
-        raise AssertionError("large k: the device twister is not the float64 fit rounded to f32")
+    coords, inertia, phi_dev = fit["coords"], fit["inertia"], fit.pop("phi_dev")
+    coords64, inertia64, tw64 = coords, inertia, fit["tw64"]
+    train_s = fit["device_wall"]
+    if not fit["launches"]["kpop_ca_gram"]:
+        raise AssertionError("large k: the train path never launched the Gram kernel")
+    log("large k: streamed device CA fit of [%d, %d], %.3f s (both fits %.1f s)"
+        % (len(vocab_hex), n_classes, train_s, time.perf_counter() - t0))
+    # its twister cast to bf16, for the bag route below (before the f32
+    # twister is dropped)
+    t0 = time.perf_counter()
+    params16 = params_around_twister(space, vocab_hex, phi_dev, inertia, coords, dtype=torch.bfloat16)
+    log("large k: bf16 parameters around the device twister, %.1f MB (%.1f s)"
+        % (params16.twister.nbytes / 1e6, time.perf_counter() - t0))
+    # the same parameters as kpop-classify-torch --dtype bf16 builds them,
+    # from the host twister (the fit with phi on the host): its rows ordered
+    # and cast on the host, so the card holds no f32 copy while they are
+    # built, and the bits equal the card's cast of the device twister
+    dims = ["Dim%d" % (i + 1) for i in range(tw64.shape[0])]
+    twister64 = Twister(
+        KPopMatrix(MatrixType.TWISTER, NamedMatrix(dims, vocab_hex, tw64)),
+        KPopMatrix(MatrixType.INERTIA, NamedMatrix(["inertia"], dims, inertia64[None, :])),
+    )
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    built = build_classifier_params(space, twister64, coords64, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live
+    same = torch.equal(built.twister, params16.twister)
+    f32_bytes = params16.twister.numel() * 4
+    log("large k: bf16 parameters from the host twister: %.1f MB of device memory at the peak "
+        "(an f32 twister %.1f MB), twister equal to the card's cast %s (%.1f s)"
+        % (peak / 1e6, f32_bytes / 1e6, same, time.perf_counter() - t0))
+    if peak >= f32_bytes or not same:
+        raise AssertionError(f"large k: bf16 build_classifier_params took {peak} B of the card "
+                             f"(f32 twister {f32_bytes} B), equal to the card's cast {same}")
+    del built
 
     t0 = time.perf_counter()
     params = params_around_twister(space, vocab_hex, phi_dev, inertia, coords)
@@ -1589,13 +1991,13 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
            time.perf_counter() - t0))
     dmats, launches, accuracy, busy = serve_routes("large k", params, batches, LARGE_K_KERNELS)
     log("large k: on %s" % card)
+    del params
+    torch.cuda.empty_cache()
+    bf16 = bf16_serving("large k bf16", params16, batches, dmats,
+                        ("kpop_embedding_bag_wide", "kpop_pairwise_dist"), ("bag",))
+    del params16
 
     t0 = time.perf_counter()
-    dims = ["Dim%d" % (i + 1) for i in range(tw64.shape[0])]
-    twister64 = Twister(
-        KPopMatrix(MatrixType.TWISTER, NamedMatrix(dims, vocab_hex, tw64)),
-        KPopMatrix(MatrixType.INERTIA, NamedMatrix(["inertia"], dims, inertia64[None, :])),
-    )
     metric_vec = twister64.metrics_vector(Metric.of_string("powers(1,1,2)"))
     want = host_chain_distances(space, twister64, coords64, metric_vec, batches[0][1])
     host_err = {path: float(np.abs(blocks[0] - want).max()) for path, blocks in dmats.items()}
@@ -1604,7 +2006,8 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
     if max(host_err.values()) > HOST_CHAIN_ATOL:
         raise AssertionError(f"large k: distances off the host float64 chain: {host_err}")
     return dict(launches=launches, accuracy=accuracy, host_err=host_err, busy=busy,
-                vocab=params.n_vocab, train_s=train_s)
+                vocab=len(vocab_hex), train_s=train_s, bf16_launches=bf16["launches"],
+                stream_launches=fit["launches"], stream_rows=fit["device_stream"]["block_rows"])
 
 
 def main() -> int:
@@ -1642,12 +2045,19 @@ def main() -> int:
     t0 = time.perf_counter()
     lk = phase_large_k(dev, sl.pop("genomes"), sl.pop("batches"), card)
     log("large k: %.1f s (device CA fit %.3f s)" % (time.perf_counter() - t0, lk["train_s"]))
+    blocked = rows["ca_gram_streamed"]
+    ran = (sl["stream_rows"], lk["stream_rows"])
+    if ran != (blocked["block_rows"], blocked["wide_block_rows"]):
+        raise AssertionError(f"the streamed fits ran blocks of {ran} rows; phase 3 checked the "
+                             f"blocked Gram at {blocked['block_rows']} and "
+                             f"{blocked['wide_block_rows']}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kpop_tpu"))
     if loaded:
         raise AssertionError("JAX or the JAX package was imported: %s" % loaded[:10])
 
     launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"],
-                "large_k": lk["launches"]}
+                "large_k": lk["launches"], "train_streamed": sl["stream_launches"],
+                "slice_bf16": sl["bf16_launches"], "large_k_bf16": lk["bf16_launches"]}
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
              launches=launches[r["path"]][r["launch"]], max_abs_err=r["err"],

@@ -49,15 +49,17 @@ _SIGNATURES = {
     # codes, B, L, k, canonical, base, lut, V, index scratch, out, stream
     "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P),
     "kpop_count_spectra_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _P, _P),
-    # codes, B, L, k, canonical, base, lut, V, twister, d, normalize,
-    # slices, int workspace, float workspace, out, stream
-    "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P),
-    "kpop_embedding_bag_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _I, _I, _I, _P, _P, _P, _P),
+    # codes, B, L, k, canonical, base, lut, V, twister, its row type (0
+    # f32, 1 bf16), d, normalize, slices, int workspace, float workspace,
+    # out, stream
+    "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "kpop_embedding_bag_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _I, _I, _I, _I, _P, _P, _P,
+                                _P),
     # dmat, B, N, k, stats, top, idx (int64), stream
     "kpop_row_digest": (_P, _I, _I, _I, _P, _P, _P, _P),
     # x, wire, K, ns, alpha, u, beta, v, slices, rows per slice, out,
-    # workspace, stream
-    "kpop_ca_gram": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    # workspace, accumulate, stream
+    "kpop_ca_gram": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P),
 }
 
 #: launches of each kernel since the last reset (set the values to 0)

@@ -8,9 +8,10 @@ the host in float64 over each full distance row
 (``kpop_tpu/core/space.py::summarize_distance_row``).  The device is the
 one ``KPOP_PLATFORM`` names (:func:`kpop_tpu_torch.config.device`).
 Minkowski distances take the exact host path, as in the JAX tool.
+``--dtype bf16`` stores the twister in bf16 on the device (every sum stays
+f32).
 
-Not ported yet (they raise): ``--dtype bf16`` and ``--kmer-parallel``
-above 1.
+Not ported yet (it raises): ``--kmer-parallel`` above 1.
 """
 
 from __future__ import annotations
@@ -252,8 +253,8 @@ def main(argv=None) -> int:
         state["project_path"] = v
 
     p.opt(["--dtype"], "'f32'|'bf16'",
-          ["device storage dtype for the twister matrix (only f32 in",
-           "the PyTorch port so far)"],
+          ["device storage dtype for the twister matrix (bf16 halves the",
+           "memory and traffic of the one large tensor; all sums stay f32)"],
           set_dtype, "f32")
     p.opt(["--kmer-parallel"], "<non_negative_integer>",
           ["shard the twister rows over this many devices (only 0 or 1,",
@@ -279,8 +280,6 @@ def main(argv=None) -> int:
 
     if not (state["twister"] and state["targets"] and state["inputs"]):
         raise ParseError("Options '-T', '-t' and an input are mandatory")
-    if state["dtype"] == "bf16":
-        raise ParseError(f"Option '--dtype bf16' is {ROADMAP_NOTE}")
     if state["kmer_parallel"] > 1:
         raise ParseError(f"Option '--kmer-parallel' above 1 is {ROADMAP_NOTE}")
 
@@ -303,6 +302,7 @@ def main(argv=None) -> int:
             distance=state["distance"],
             metric=state["metric"],
             device=device(),
+            dtype=torch.bfloat16 if state["dtype"] == "bf16" else torch.float32,
         )
         step = DeviceStep(params, state["project_path"])
         dispatch_seqs, materialize = step.dispatch, step.materialize

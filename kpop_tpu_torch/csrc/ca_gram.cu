@@ -65,6 +65,15 @@
 // G; with S > 1 each slice writes its own [ns, ns] in an f64 workspace and
 // slice_sum_kernel adds the slices in the order s = 0, 1, ..., S - 1:
 // bit-reproducible, no float atomics.
+//
+// Accumulate.  The streamed CA fit (kpop_tpu_torch/parallel/sharded.py,
+// the counterpart of _ca_fit_streamed with _gram_compact_carry_fn_cached
+// and _gram_limbs_carry_fn_cached, whose double-double (acc, comp) carry
+// chains the blocks) calls the kernel once a row block of the table with
+// accumulate set: the tiles always go to the workspace, and
+// slice_sum_kernel adds the block's sum of slices into G, G + (s_0 + s_1
+// + ...), so the blocks' Grams add in block order in float64 with no
+// carry, the same from run to run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -274,13 +283,14 @@ __global__ void factors_kernel(const double* __restrict__ alpha, const double* _
     }
 }
 
+// out = the sum of the slices in order, or with accumulate out + that sum
 __global__ void slice_sum_kernel(const double* __restrict__ ws, int slices,
-                                 size_t n, double* __restrict__ out) {
+                                 size_t n, int accumulate, double* __restrict__ out) {
     for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += (size_t)gridDim.x * blockDim.x) {
         double s = 0.0;
         for (int j = 0; j < slices; ++j) s += ws[(size_t)j * n + i];
-        out[i] = s;
+        out[i] = accumulate ? out[i] + s : s;
     }
 }
 
@@ -304,12 +314,13 @@ cudaError_t launch_tiles(const void* x, int K, int ns, const double* alpha,
 }  // namespace
 
 // wire: 0 u8, 1 u16, 2 f32, 3 f64.  workspace: K + ns f64 for rho and
-// gamma, then [slices, ns, ns] f64 when slices > 1.
+// gamma, then [slices, ns, ns] f64 when slices > 1 or accumulate.
+// accumulate: out += G (out holds a Gram already), else out = G.
 extern "C" int kpop_ca_gram(const void* x, int wire, int K, int ns,
                             const double* alpha, const double* u,
                             const double* beta, const double* v, int slices,
                             int rows_per_slice, double* out, double* workspace,
-                            void* stream) {
+                            int accumulate, void* stream) {
     if (K <= 0 || ns <= 0 || slices <= 0 || rows_per_slice <= 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
@@ -320,7 +331,8 @@ extern "C" int kpop_ca_gram(const void* x, int wire, int K, int ns,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     double* partial = gamma + ns;
-    double* dst = slices > 1 ? partial : out;
+    const bool staged = slices > 1 || accumulate;
+    double* dst = staged ? partial : out;
     switch (wire) {
         case 0: err = launch_tiles<uint8_t>(x, K, ns, alpha, rho, beta, gamma, slices, rows_per_slice, dst, st); break;
         case 1: err = launch_tiles<uint16_t>(x, K, ns, alpha, rho, beta, gamma, slices, rows_per_slice, dst, st); break;
@@ -328,9 +340,9 @@ extern "C" int kpop_ca_gram(const void* x, int wire, int K, int ns,
         case 3: err = launch_tiles<double>(x, K, ns, alpha, rho, beta, gamma, slices, rows_per_slice, dst, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
-    if (err != cudaSuccess || slices == 1) return (int)err;
+    if (err != cudaSuccess || !staged) return (int)err;
     const size_t n = (size_t)ns * ns;
     const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-    slice_sum_kernel<<<blocks, 256, 0, st>>>(partial, slices, n, out);
+    slice_sum_kernel<<<blocks, 256, 0, st>>>(partial, slices, n, accumulate, out);
     return (int)cudaGetLastError();
 }

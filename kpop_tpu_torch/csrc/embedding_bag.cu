@@ -89,6 +89,17 @@
 // code in uint64 and looks it up in the cuckoo hash's fingerprints and
 // slots or the sorted limbs of wide_lookup.cuh in place of the LUT; every
 // later stage is the same.
+//
+// bf16 twisters (row type 1; kpop-classify --dtype bf16, the JAX
+// package's project_reads on a bf16 twister, whose scan widens each
+// gathered row to f32 and sums in f32).  The rows are read at 2 bytes an
+// element, which halves the bytes that bound the gather regime; each
+// element is widened to f32 exactly (its 16 bits as the high half) and
+// then goes through the same f32 products and sums, in the same order, as
+// an f32 row's, so both regimes still give the same bits.  A bf16 row
+// starts on 2 bytes, so the staged ring's 16-byte windows align down by 8
+// elements where f32's align by 4: a 128-column slice is 256 bytes plus up
+// to 14 of offset, 17 chunks (Row<Tw>), where f32 needs 33.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,8 +122,6 @@ constexpr int SCAN_THREADS = 1024;
 constexpr int SCAN_ITEMS = 4;
 constexpr int COMPACT_THREADS = 256;
 constexpr int NARROW_MAX = 65535;         // windows a read set for the compact's u16 counts
-constexpr int ROW_CHUNKS = COLS / 4 + 1;  // 16-byte chunks that hold a row's slice
-constexpr int ROW_STRIDE = 4 * ROW_CHUNKS; // floats a staged row
 constexpr int HDR_INTS = 4 + GROUP + 4;    // a tile's stage header, 16-byte padded
 constexpr int HDR_CHUNKS = HDR_INTS / 4;
 constexpr unsigned FULL = 0xffffffffu;
@@ -122,10 +131,27 @@ static_assert(COMPACT_THREADS >= GROUP && COMPACT_THREADS % 32 == 0, "compact bl
 static_assert(HDR_INTS % 4 == 0, "a header is whole 16-byte chunks");
 static_assert(CNT % 4 == 0 && R % SUB == 0 && R % 32 == 0, "a tile's counters are whole int4s");
 
+// A twister row's element type Tw: float, or bf16 held as its 16 bits
+// (uint16_t).  A 16-byte chunk holds PER_CHUNK elements; CHUNKS chunks
+// hold a COLS-column slice at any offset within its first chunk, and a
+// staged row takes STRIDE elements.
+template <typename Tw>
+struct Row {
+    static constexpr int PER_CHUNK = 16 / (int)sizeof(Tw);
+    static constexpr int CHUNKS = COLS / PER_CHUNK + 1;
+    static constexpr int STRIDE = PER_CHUNK * CHUNKS;
+};
+static_assert(COLS % Row<uint16_t>::PER_CHUNK == 0, "a column block starts on a chunk");
+
+// an element widened to f32, exactly
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t bits) { return __uint_as_float((unsigned)bits << 16); }
+
 // the offset of twister[v, col0] in its 16-byte aligned window (col0 is a
-// multiple of 4)
+// multiple of PER_CHUNK)
+template <typename Tw>
 __device__ __forceinline__ int row_shift(int v, int d, int col0) {
-    return (int)(((unsigned)v * (unsigned)d + (unsigned)col0) & 3u);
+    return (int)(((unsigned)v * (unsigned)d + (unsigned)col0) & (unsigned)(Row<Tw>::PER_CHUNK - 1));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -317,7 +343,7 @@ __device__ __forceinline__ unsigned count_of(const unsigned* cnt, int c) {
     return NARROW ? (cnt[c >> 1] >> (16 * (c & 1))) & 0xffffu : cnt[c];
 }
 
-template <bool NARROW>
+template <bool NARROW, typename Tw>
 __global__ void __launch_bounds__(COMPACT_THREADS)
 bag_compact(const int* __restrict__ keys, const int* __restrict__ nz,
             const int* __restrict__ kbase, const int* __restrict__ n_nz, int B, int d,
@@ -394,7 +420,7 @@ bag_compact(const int* __restrict__ keys, const int* __restrict__ nz,
                     const int r = 32 * q + lane;
                     const int slot = slot0[q] + __popc(hits[q] & below);
                     ent[pos + __popc(m & below)] =
-                        make_int2(r << 16 | (slot * ROW_STRIDE + row_shift(t * R + r, d, 0)),
+                        make_int2(r << 16 | (slot * Row<Tw>::STRIDE + row_shift<Tw>(t * R + r, d, 0)),
                                   __float_as_int((float)count_of<NARROW>(cnt, b * R + r)));
                 }
                 pos += __popc(m);
@@ -456,7 +482,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
 constexpr int SLOTS = 2;
 constexpr int MBAR_BYTES = (SLOTS * 8 + 15) / 16 * 16;
 constexpr int RING_BYTES = 232448 - MBAR_BYTES;
-static_assert(HDR_INTS * 4 + (GROUP * R + 2) * 8 + R * ROW_STRIDE * 4 <= RING_BYTES,
+static_assert(HDR_INTS * 4 + (GROUP * R + 2) * 8 + R * Row<float>::CHUNKS * 16 <= RING_BYTES,
               "the densest tile fits in the ring alone");
 
 __device__ __forceinline__ void mbar_init(uint64_t* mbar, int count) {
@@ -486,14 +512,15 @@ __host__ __device__ __forceinline__ int staged_entries(int n, int e0) {
 }
 
 // A tile in the ring: its header (HDR_INTS), its entries from their
-// 16-byte aligned window, and its hit rows [hits, ROW_STRIDE] f32 in row
-// order: hit row r holds the 16-byte aligned window of ROW_CHUNKS chunks
-// that starts at or just before twister[v, col0], so column col0 + c sits
-// at slot ROW_STRIDE + row_shift(v) + c.  Every part is a multiple of 16
-// bytes.
+// 16-byte aligned window, and its hit rows [hits, Row<Tw>::STRIDE] in row
+// order: hit row r holds the 16-byte aligned window of Row<Tw>::CHUNKS
+// chunks that starts at or just before twister[v, col0], so column col0 +
+// c sits at slot Row<Tw>::STRIDE + row_shift(v) + c.  Every part is a
+// multiple of 16 bytes.
+template <typename Tw>
 __device__ __forceinline__ int tile_bytes(int4 m, int4 h) {
     const int hits = __popc(h.x) + __popc(h.y) + __popc(h.z) + __popc(h.w);
-    return HDR_INTS * 4 + staged_entries(m.y, m.z) * 8 + hits * ROW_STRIDE * 4;
+    return HDR_INTS * 4 + staged_entries(m.y, m.z) * 8 + hits * Row<Tw>::CHUNKS * 16;
 }
 
 // the position of the k-th set bit (from 0) of w
@@ -510,20 +537,22 @@ __device__ __forceinline__ int nth_bit(unsigned w, int k) {
 }
 
 // all threads: the copies that bring tile j (meta m, hit mask h) to st;
-// the twister holds `size` floats.  Copy i is a header chunk, an entry
-// chunk, or chunk i % ROW_CHUNKS of the (i / ROW_CHUNKS)-th hit row; the
-// chunks past the twister's end are zero-filled.
+// the twister holds `size` elements.  Copy i is a header chunk, an entry
+// chunk, or chunk i % CHUNKS of the (i / CHUNKS)-th hit row; the chunks
+// past the twister's end are zero-filled.
+template <typename Tw>
 __device__ __forceinline__ void fill(unsigned char* st, int j, int4 m, int4 h,
                                      const int2* __restrict__ ent, const int* __restrict__ hdr,
-                                     const float* __restrict__ twister, size_t size, int d,
+                                     const Tw* __restrict__ twister, size_t size, int d,
                                      int col0) {
+    constexpr int PER = Row<Tw>::PER_CHUNK, CHUNKS = Row<Tw>::CHUNKS;
     const int n_ent = staged_entries(m.y, m.z);
     int2* se = reinterpret_cast<int2*>(st + HDR_INTS * 4);
-    float* rows = reinterpret_cast<float*>(st + HDR_INTS * 4 + n_ent * 8);
+    Tw* rows = reinterpret_cast<Tw*>(st + HDR_INTS * 4 + n_ent * 8);
     const int e0 = m.z & ~1;
     const int n1 = HDR_CHUNKS + n_ent / 2;
     const int p1 = __popc(h.x), p2 = p1 + __popc(h.y), p3 = p2 + __popc(h.z);
-    const int n2 = n1 + (p3 + __popc(h.w)) * ROW_CHUNKS;
+    const int n2 = n1 + (p3 + __popc(h.w)) * CHUNKS;
     const size_t first = (size_t)m.x * R * d + col0;  // twister[t R, col0]
     for (int i = threadIdx.x; i < n2; i += THREADS) {
         if (i < HDR_CHUNKS) {
@@ -531,31 +560,35 @@ __device__ __forceinline__ void fill(unsigned char* st, int j, int4 m, int4 h,
         } else if (i < n1) {
             cp_async16(se + 2 * (i - HDR_CHUNKS), ent + e0 + 2 * (i - HDR_CHUNKS), 16);
         } else {
-            const int c = i - n1, slot = c / ROW_CHUNKS, q = c - slot * ROW_CHUNKS;
+            const int c = i - n1, slot = c / CHUNKS, q = c - slot * CHUNKS;
             const int word = slot < p1 ? 0 : slot < p2 ? 1 : slot < p3 ? 2 : 3;
             const int r = 32 * word + nth_bit(word == 0 ? h.x : word == 1 ? h.y : word == 2 ? h.z : h.w,
                                               slot - (word == 0 ? 0 : word == 1 ? p1 : word == 2 ? p2 : p3));
-            const size_t src = ((first + (size_t)r * d) & ~(size_t)3) + 4 * q;
-            const int bytes = src + 4 <= size ? 16 : src < size ? (int)(size - src) * 4 : 0;
-            cp_async16(rows + slot * ROW_STRIDE + 4 * q, twister + (bytes ? src : 0), bytes);
+            const size_t src = ((first + (size_t)r * d) & ~(size_t)(PER - 1)) + PER * q;
+            const int bytes =
+                src + PER <= size ? 16 : src < size ? (int)((size - src) * sizeof(Tw)) : 0;
+            cp_async16(rows + slot * Row<Tw>::STRIDE + PER * q, twister + (bytes ? src : 0), bytes);
         }
     }
 }
 
-// the lane's 4 columns of the staged row of entry a, times the count
-__device__ __forceinline__ void add_entry(float (&acc)[4], const float* rows, int2 a, int lane) {
+// the lane's 4 columns of the staged row of entry a, widened, times the
+// count
+template <typename Tw>
+__device__ __forceinline__ void add_entry(float (&acc)[4], const Tw* rows, int2 a, int lane) {
     const float cf = __int_as_float(a.y);
-    const float* x = rows + (a.x & 0xffff) + lane;
+    const Tw* x = rows + (a.x & 0xffff) + lane;
     float v[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = x[32 * k];
+    for (int k = 0; k < 4; ++k) v[k] = widen(x[32 * k]);
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(cf, v[k]));
 }
 
 // the entries [e, e1) of one read set into its sums, in order, two at a
 // time
-__device__ __forceinline__ void add_read_set(float (&acc)[4], const int2* se, const float* rows,
+template <typename Tw>
+__device__ __forceinline__ void add_read_set(float (&acc)[4], const int2* se, const Tw* rows,
                                              int e, int e1, int lane) {
     for (; e + 2 <= e1; e += 2) {
         const int2 a0 = se[e], a1 = se[e + 1];
@@ -588,11 +621,12 @@ __device__ __forceinline__ bool gather_regime(const int* __restrict__ entries,
 // entries and a sparse tile's few rows cost only their bytes.  Warp w
 // keeps the sums of read sets 4 w .. 4 w + 3 over columns COLS y + lane +
 // 32 k in registers.
+template <typename Tw>
 __global__ void __launch_bounds__(THREADS, 1)
 bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
                const int* __restrict__ hdr, const int* __restrict__ kbase,
                const int* __restrict__ n_nz, const int2* __restrict__ ent,
-               const int* __restrict__ entries, const float* __restrict__ twister, int V, int d,
+               const int* __restrict__ entries, const Tw* __restrict__ twister, int V, int d,
                int B, float* __restrict__ ws) {
     if (gather_regime(entries, n_nz)) return;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -624,7 +658,7 @@ bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
         const int i = j - j0;
         while (jf < j1 && jf - j < SLOTS) {
             if (used == 0) head = 0;
-            const int z = tile_bytes(mf, hf);
+            const int z = tile_bytes<Tw>(mf, hf);
             const bool wrap = head + z > RING_BYTES;  // skip the ring's end
             const int pad = wrap ? RING_BYTES - head : 0;
             if (used + pad + z > RING_BYTES) break;
@@ -643,8 +677,8 @@ bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
         const int* h = reinterpret_cast<const int*>(st);
         const int sh = h[1], total = h[4 + GROUP];
         const int2* se = reinterpret_cast<const int2*>(st + HDR_INTS * 4) + sh;
-        const float* rows =
-            reinterpret_cast<const float*>(st + HDR_INTS * 4 + staged_entries(total, sh) * 8);
+        const Tw* rows =
+            reinterpret_cast<const Tw*>(st + HDR_INTS * 4 + staged_entries(total, sh) * 8);
 #pragma unroll
         for (int bi = 0; bi < 4; ++bi) {
             const int b = 4 * w + bi;
@@ -679,11 +713,12 @@ static_assert(GATHER_TILES * 4 == 32, "a lane a (tile, read set) of the warp");
 // reads their twister rows straight from global memory, GATHER_AHEAD
 // entries' rows in flight, and adds count x row to the owner's sums in
 // entry order: the products and the order of bag_accumulate.
+template <typename Tw>
 __global__ void __launch_bounds__(THREADS, 1)
 bag_gather(const int4* __restrict__ meta, const int* __restrict__ hdr,
            const int* __restrict__ kbase, const int* __restrict__ n_nz,
            const int2* __restrict__ ent, const int* __restrict__ entries,
-           const float* __restrict__ twister, int d, int B, float* __restrict__ ws) {
+           const Tw* __restrict__ twister, int d, int B, float* __restrict__ ws) {
     if (!gather_regime(entries, n_nz)) return;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     const int col0 = blockIdx.x * COLS;
@@ -743,11 +778,11 @@ bag_gather(const int4* __restrict__ meta, const int* __restrict__ hdr,
                     float x[GATHER_AHEAD][4];
 #pragma unroll
                     for (int u = 0; u < GATHER_AHEAD; ++u) {
-                        const float* src =
+                        const Tw* src =
                             twister + (size_t)__shfl_sync(FULL, v, us[u] & 31) * d + col0 + lane;
 #pragma unroll
                         for (int k = 0; k < 4; ++k)
-                            x[u][k] = us[u] >= 0 && in_row[k] ? __ldg(src + 32 * k) : 0.0f;
+                            x[u][k] = us[u] >= 0 && in_row[k] ? widen(__ldg(src + 32 * k)) : 0.0f;
                     }
 #pragma unroll
                     for (int u = 0; u < GATHER_AHEAD; ++u) {
@@ -798,9 +833,9 @@ __global__ void bag_slice_sum(const float* __restrict__ ws, int S, int B, int d,
 // T, kbase T + 1, the tile totals T, n_known GROUP, n_nz 1 and the pass's
 // entries 1 int; fwork S min(B, GROUP) d floats.  The twister must start
 // on 16 bytes.
-template <class Find>
+template <class Find, typename Tw>
 int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int base,
-                  const Find& find, int V, const float* twister, int d, int normalize, int S,
+                  const Find& find, int V, const Tw* twister, int d, int normalize, int S,
                   int* iwork, float* fwork, float* out, void* stream) {
     if (B <= 0 || d <= 0) return (int)cudaGetLastError();
     if (L < k || V <= 0 || S <= 0 || S > 65535 ||
@@ -826,10 +861,10 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
     int* entries = n_nz + 1;
     const size_t acc_smem = MBAR_BYTES + RING_BYTES;
     const bool narrow = W <= NARROW_MAX;
-    auto compact = narrow ? bag_compact<true> : bag_compact<false>;
+    auto compact = narrow ? bag_compact<true, Tw> : bag_compact<false, Tw>;
     const int compact_smem = Bmax * R * (narrow ? 2 : 4);
     cudaError_t err = cudaFuncSetAttribute(
-        bag_accumulate, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)acc_smem);
+        bag_accumulate<Tw>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)acc_smem);
     if (err == cudaSuccess)
         err = cudaFuncSetAttribute(compact, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    compact_smem);
@@ -860,10 +895,10 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
         bag_scatter<<<bgrid, HIST_THREADS, 0, st>>>(vt, W, V, bkt, keys);
         compact<<<compact_blocks, COMPACT_THREADS, compact_smem, st>>>(
             keys, nz, kbase, n_nz, Bg, d, ent, meta, hit, hdr, entries);
-        bag_accumulate<<<acc_grid, THREADS, acc_smem, st>>>(meta, hit, hdr, kbase, n_nz, ent,
-                                                            entries, twister, V, d, Bg, fwork);
-        bag_gather<<<acc_grid, THREADS, 0, st>>>(meta, hdr, kbase, n_nz, ent, entries, twister,
-                                                 d, Bg, fwork);
+        bag_accumulate<Tw><<<acc_grid, THREADS, acc_smem, st>>>(meta, hit, hdr, kbase, n_nz, ent,
+                                                                entries, twister, V, d, Bg, fwork);
+        bag_gather<Tw><<<acc_grid, THREADS, 0, st>>>(meta, hdr, kbase, n_nz, ent, entries,
+                                                     twister, d, Bg, fwork);
         const size_t n = (size_t)Bg * d;
         const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
         bag_slice_sum<<<blocks, 256, 0, st>>>(fwork, S, Bg, d, n_known, normalize,
@@ -873,16 +908,36 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
     return (int)cudaSuccess;
 }
 
+// the twister's row type: 0 f32, 1 bf16
+template <class Find>
+int embedding_bag_rows(const int8_t* codes, int B, int L, int k, int canonical, int base,
+                       const Find& find, int V, const void* twister, int row_type, int d,
+                       int normalize, int S, int* iwork, float* fwork, float* out,
+                       void* stream) {
+    switch (row_type) {
+        case 0:
+            return embedding_bag(codes, B, L, k, canonical, base, find, V,
+                                 static_cast<const float*>(twister), d, normalize, S, iwork,
+                                 fwork, out, stream);
+        case 1:
+            return embedding_bag(codes, B, L, k, canonical, base, find, V,
+                                 static_cast<const uint16_t*>(twister), d, normalize, S, iwork,
+                                 fwork, out, stream);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // k up to lut_k_max: lut is the dense [base^k + 1] table
 extern "C" int kpop_embedding_bag(const int8_t* codes, int B, int L, int k,
                                   int canonical, int base, const int32_t* lut,
-                                  int V, const float* twister, int d,
+                                  int V, const void* twister, int row_type, int d,
                                   int normalize, int S, int* iwork,
                                   float* fwork, float* out, void* stream) {
-    return embedding_bag(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V, twister, d,
-                         normalize, S, iwork, fwork, out, stream);
+    return embedding_bag_rows(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V,
+                              twister, row_type, d, normalize, S, iwork, fwork, out, stream);
 }
 
 // larger k: the cuckoo hash's probe layout (ops/cuckoo.py::probe_table) of
@@ -892,12 +947,13 @@ extern "C" int kpop_embedding_bag_wide(const int8_t* codes, int B, int L, int k,
                                        int base, int k_lo, const int32_t* probe, int slots,
                                        uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
                                        const int32_t* limbs, int V,
-                                       const float* twister, int d, int normalize, int S,
-                                       int* iwork, float* fwork, float* out, void* stream) {
+                                       const void* twister, int row_type, int d, int normalize,
+                                       int S, int* iwork, float* fwork, float* out,
+                                       void* stream) {
     if (k > 32 || !probe == !limbs || (probe && (slots & (slots - 1))) ||
         reinterpret_cast<uintptr_t>(probe) % 16 || reinterpret_cast<uintptr_t>(limbs) % 8)
         return (int)cudaErrorInvalidValue;
-    return embedding_bag(codes, B, L, k, canonical, base,
-                         kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V),
-                         V, twister, d, normalize, S, iwork, fwork, out, stream);
+    return embedding_bag_rows(codes, B, L, k, canonical, base,
+                              kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V),
+                              V, twister, row_type, d, normalize, S, iwork, fwork, out, stream);
 }

@@ -17,6 +17,10 @@ implies ``u = 0`` and ``beta = 0`` implies ``v = 0`` (the CA's vectors are
 so by construction); elsewhere the Gram comes out NaN, never wrong.
 On a CPU tensor it runs :func:`residual_gram_ref`, the plain PyTorch
 version.
+
+With ``out=G`` it adds the Gram into ``G`` (the streamed CA fit calls it
+so once a row block of the table, the blocks' Grams summed in block order
+in float64); the plain version is ``G += residual_gram_ref(...)``.
 """
 
 from __future__ import annotations
@@ -104,10 +108,19 @@ def residual_gram_ref(x, alpha, u, beta, v, block_bytes: int = 64 << 20) -> torc
     return G
 
 
-def residual_gram(x, alpha, u, beta, v, waves: int = WAVES) -> torch.Tensor:
+def workspace_doubles(K: int, ns: int, slices: int, accumulate: bool) -> int:
+    """float64 workspace of the CUDA kernel: rho and gamma, then the
+    slices' partial Grams when there are several or the call accumulates."""
+    return K + ns + (slices * ns * ns if slices > 1 or accumulate else 0)
+
+
+def residual_gram(x, alpha, u, beta, v, waves: int = WAVES,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """``[K, ns]`` wire table and its scaling vectors -> ``G [ns, ns]``
     float64 (see the module docstring); ``waves`` sizes the CUDA kernel's
-    split-K grid (:func:`split_plan`)."""
+    split-K grid (:func:`split_plan`).  With ``out``, a contiguous ``[ns,
+    ns]`` float64 tensor on the table's device, the Gram is added into it
+    and ``out`` is returned."""
     K, ns = x.shape
     if alpha.shape != (K,) or u.shape != (K,) or beta.shape != (ns,) or v.shape != (ns,):
         raise ValueError(
@@ -116,23 +129,30 @@ def residual_gram(x, alpha, u, beta, v, waves: int = WAVES) -> torch.Tensor:
         )
     if x.dtype not in WIRE_CODES:
         raise TypeError(f"residual_gram: wire dtype {x.dtype} is not one of {list(WIRE_CODES)}")
-    if x.device.type == "cpu":
-        return residual_gram_ref(x, alpha, u, beta, v)
     f64 = torch.float64
+    accumulate = out is not None
+    if accumulate and (out.shape != (ns, ns) or out.dtype != f64 or out.device != x.device
+                       or not out.is_contiguous()):
+        raise ValueError(f"residual_gram: out must be a contiguous [{ns}, {ns}] float64 "
+                         f"tensor on {x.device}")
+    if x.device.type == "cpu":
+        G = residual_gram_ref(x, alpha, u, beta, v)
+        return out.add_(G) if accumulate else G
     _build.check_cuda(
         "residual_gram", x, alpha, u, beta, v, dtypes=(x.dtype,) + (f64,) * 4
     )
     if K == 0 or ns == 0:
-        return torch.zeros((ns, ns), dtype=f64, device=x.device)
+        return out if accumulate else torch.zeros((ns, ns), dtype=f64, device=x.device)
     if K + ns > _INT_MAX or ns * ns > _INT_MAX:
         raise ValueError(f"residual_gram: K={K}, ns={ns} exceed the kernel's int range")
-    out = torch.empty((ns, ns), dtype=f64, device=x.device)  # every entry written
+    if not accumulate:
+        out = torch.empty((ns, ns), dtype=f64, device=x.device)  # every entry written
     slices, rows = split_plan(K, ns, _sm_count(x.device), waves)
-    # rho and gamma, then the slices' partial Grams
-    ws = torch.empty(K + ns + (slices * ns * ns if slices > 1 else 0), dtype=f64, device=x.device)
+    ws = torch.empty(workspace_doubles(K, ns, slices, accumulate), dtype=f64, device=x.device)
     _build.launch(
         "kpop_ca_gram",
         x.data_ptr(), WIRE_CODES[x.dtype], K, ns, alpha.data_ptr(), u.data_ptr(),
         beta.data_ptr(), v.data_ptr(), slices, rows, out.data_ptr(), ws.data_ptr(),
+        int(accumulate),
     )
     return out

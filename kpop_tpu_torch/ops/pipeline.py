@@ -17,7 +17,14 @@ written once, slice by slice), the embedding bag
 (``csrc/pairwise.cu`` through :mod:`.pairwise`).  Each wrapper runs its
 plain PyTorch version (``*_ref``) for tensors on the CPU and launches its
 kernel, or raises, for tensors on a card.  The twister product is a plain
-f32 ``torch.matmul``, as the JAX package left it to XLA.
+``torch.matmul``, as the JAX package left it to XLA.
+
+The twister is f32 or, as ``kpop-classify --dtype bf16`` builds it, bf16:
+half the bytes of the one large tensor.  Every sum stays f32, as in the
+JAX package: the bag widens each row to f32 in the kernel, and the dense
+route casts the f32 spectrum to bf16 and multiplies with an f32 output
+(``torch.mm(..., out_dtype=torch.float32)``), its row sums taken on the
+f32 spectrum.
 
 Up to k = :func:`~.encode.lut_k_max` a window code is looked up in a dense
 table; above it (DNA k up to 30, protein up to 12) its two int32 limbs are
@@ -25,8 +32,6 @@ looked up in a cuckoo hash or, when the hash could not be built, by binary
 search in the sorted limbs.  The count and the bag each have a second C
 entry point for that lookup (``kpop_count_spectra_wide``,
 ``kpop_embedding_bag_wide``; ``csrc/wide_lookup.cuh``).
-
-Not ported yet (they raise): bf16 twisters.
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ from .encode import (
 from .pairwise import H100_SMS, _sm_count, distance_tile, row_norms
 
 ROADMAP_NOTE = "not ported to kpop_tpu_torch yet (ROADMAP.md, queue 1)"
+
+#: twister dtypes, with the bag kernel's code for each row type
+BAG_ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: twister columns per accumulate block of the embedding-bag kernel
 #: (csrc/embedding_bag.cu), 4 a lane
@@ -82,8 +90,8 @@ _INT_MAX = 2**31 - 1
 class ClassifierParams(nn.Module):
     """Device-resident parameters of the count + twist + classify model.
 
-    Buffers: ``twister [V, d]`` f32, ``metric [d]``, ``class_coords [C,
-    d]``, ``class_norms [C]`` and the vocabulary.  Up to k =
+    Buffers: ``twister [V, d]`` f32 or bf16, ``metric [d]``,
+    ``class_coords [C, d]``, ``class_norms [C]`` (f32) and the vocabulary.  Up to k =
     :func:`~.encode.lut_k_max` the vocabulary is ``vocab_lut [base^k + 1]``
     int32 (code -> twister row, V for a k-mer outside the vocabulary).
     Above it (DNA k up to 30, protein up to 12) ``vocab_lut`` is None, the
@@ -116,11 +124,10 @@ class ClassifierParams(nn.Module):
         cuckoo_seeds: tuple = (),
     ):
         super().__init__()
-        if twister.dtype != torch.float32:
+        if twister.dtype not in BAG_ROW_TYPES:
             raise NotImplementedError(
-                f"{twister.dtype} twisters are {ROADMAP_NOTE}: torch.matmul "
-                "would return that dtype where the JAX package accumulates "
-                "and returns f32"
+                f"{twister.dtype} twisters: the port serves f32 and bf16 ones, "
+                "as the JAX package's kpop-classify --dtype does"
             )
         if distance_kind not in ("euclidean", "cosine"):
             raise ValueError(
@@ -181,18 +188,20 @@ def build_classifier_params(
     distance: Distance | None = None,
     metric: Metric | None = None,
     device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> ClassifierParams:
     """Assemble device parameters from host artefacts, as the JAX
-    ``build_classifier_params`` does: the host ``[d, V]`` twister is
-    uploaded as ``[V, d]`` f32, then :func:`params_around_twister`."""
+    ``build_classifier_params`` does: the host ``[d, V]`` twister, as
+    ``[V, d]`` f32, has its rows put in order and is cast to ``dtype`` on
+    the host, and only then uploaded, so the device never holds more than
+    the twister it serves (see :func:`params_around_twister`)."""
     from ..config import device as default_device
 
     device = default_device() if device is None else torch.device(device)
     tw = np.asarray(twister.twister.matrix.data, dtype=np.float32).T  # [V, d]
-    return params_around_twister(
-        space, twister.kmer_names,
-        torch.as_tensor(np.ascontiguousarray(tw), device=device),
-        np.asarray(twister.inertia.matrix.data[0]), class_coords, distance, metric,
+    return _params(
+        space, twister.kmer_names, torch.from_numpy(np.ascontiguousarray(tw)),
+        np.asarray(twister.inertia.matrix.data[0]), class_coords, distance, metric, dtype, device,
     )
 
 
@@ -204,10 +213,14 @@ def params_around_twister(
     class_coords: np.ndarray,
     distance: Distance | None = None,
     metric: Metric | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> ClassifierParams:
     """Classifier parameters around a ``[V, d]`` f32 twister that already
     lies on its device, such as the one ``ca_fit_sharded(phi="device")``
     trains (the train-to-serve handoff of ``bench.py``, without a download).
+    ``dtype`` (f32 or bf16) applies to the twister alone, cast on its
+    device after the rows are put in order; the metric and the class
+    tensors stay f32, as in the JAX package.
     Unknown k-mers are routed to V (dropped, lib/Twister.ml:167-169); the
     metric comes from the inertia (lib/Twister.ml:208-209).
 
@@ -218,11 +231,21 @@ def params_around_twister(
     as sorted limbs when no seed converges); the twister's rows are
     gathered into the sorted order, which briefly holds a second copy of
     the twister on its device."""
+    return _params(space, kmer_names, twister, inertia, class_coords, distance, metric, dtype,
+                   twister.device)
+
+
+def _params(space, kmer_names, twister, inertia, class_coords, distance, metric, dtype,
+            device) -> ClassifierParams:
+    """:func:`params_around_twister` on ``device``: the twister's rows put
+    in order and cast to ``dtype`` where the twister lies, then moved to
+    ``device``."""
     distance = distance or Distance.of_string("euclidean")
     metric = metric or Metric.of_string("powers(1,1,2)")
+    if dtype not in BAG_ROW_TYPES:
+        raise NotImplementedError(f"{dtype} twisters: f32 or bf16")
     kmer_codes = np.array([space.hex_to_code(h) for h in kmer_names], dtype=np.uint64)
     V = len(kmer_codes)
-    device = twister.device
     if space.k <= lut_k_max(space.base):
         lut = np.full(space.n_kmers + 1, V, dtype=np.int32)
         lut[kmer_codes.astype(np.int64)] = np.arange(V, dtype=np.int32)
@@ -231,7 +254,8 @@ def params_around_twister(
         vocab, order = wide_vocab(space, kmer_codes)
         vocab = {name: torch.as_tensor(a, device=device) if isinstance(a, np.ndarray) else a
                  for name, a in vocab.items()}
-        twister = twister.index_select(0, torch.as_tensor(order, device=device))
+        twister = twister.index_select(0, torch.as_tensor(order, device=twister.device))
+    twister = twister.to(dtype=dtype).to(device)
     mvec = metric.compute(np.asarray(inertia, dtype=np.float64))
     cls_norms = normalizations(distance, mvec, class_coords)
 
@@ -283,19 +307,25 @@ def params_from_jax(
     """Carry the JAX package's ``ClassifierParams`` across: ``arrays`` holds
     its array fields (:data:`PARAM_ARRAYS`, those that are None left out or
     None) as numpy arrays (``np.asarray(field)``); ``cuckoo_seeds`` is its
-    field of that name."""
+    field of that name.  A bf16 twister (numpy's ``bfloat16`` of
+    ``ml_dtypes``, which numpy has no type of its own for) crosses as its
+    16 bits."""
     from ..config import device as default_device
 
     device = default_device() if device is None else torch.device(device)
-    if np.asarray(arrays["twister"]).dtype != np.float32:
-        raise NotImplementedError(
-            f"{np.asarray(arrays['twister']).dtype} twisters are {ROADMAP_NOTE}"
-        )
+    tw_dtype = np.asarray(arrays["twister"]).dtype
+    if tw_dtype != np.float32 and tw_dtype.name != "bfloat16":
+        raise NotImplementedError(f"{tw_dtype} twisters: the port serves f32 and bf16 ones")
 
     def t(name):
         # a C-order copy: arrays taken from JAX are read-only
         a = arrays.get(name)
-        return None if a is None else torch.tensor(np.ascontiguousarray(a), device=device)
+        if a is None:
+            return None
+        a = np.ascontiguousarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.view(np.uint16), device=device).view(torch.bfloat16)
+        return torch.tensor(a, device=device)
 
     return ClassifierParams(
         **{name: t(name) for name in PARAM_ARRAYS},
@@ -439,7 +469,8 @@ def project_reads_ref(
     chunk: int = 2048,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`project_reads`: gather-sum of twister
-    rows over chunks of ``chunk`` windows (the JAX ``lax.scan``)."""
+    rows over chunks of ``chunk`` windows (the JAX ``lax.scan``), each row
+    widened to f32 and summed in f32."""
     V = params.n_vocab
     idx = vocab_lookup(params, base_codes)
     B, W = idx.shape
@@ -450,7 +481,7 @@ def project_reads_ref(
     for w0 in range(0, W, chunk):
         safe = idx[:, w0 : w0 + chunk].clamp(max=V - 1).long()
         contrib = params.twister[safe] * known[:, w0 : w0 + chunk, None]
-        twisted += contrib.sum(dim=1)
+        twisted += contrib.sum(dim=1, dtype=torch.float32)  # a bf16 row widened
     if normalize:
         counts = known.sum(dim=1).to(torch.float32)
         twisted /= torch.where(counts == 0, torch.ones_like(counts), counts)[:, None]
@@ -505,13 +536,15 @@ def project_reads(
     once per column block, or, where the vocabulary tiles are sparse
     (:func:`bag_regime`), straight from global memory into registers;
     the :func:`bag_plan` slices of the vocabulary are summed in order.
-    The result is the same from run to run, and in either regime."""
+    The result is the same from run to run, and in either regime.  A bf16
+    twister's rows are read at 2 bytes an element and widened to f32 in
+    the kernel, before the same f32 products and sums."""
     B, L = _check_codes("project_reads", params, base_codes)
     if base_codes.device.type == "cpu":
         return project_reads_ref(params, base_codes, normalize)
     suffix, vocab = vocab_args("project_reads", params, base_codes)
     _build.check_cuda("project_reads", base_codes, params.twister,
-                      dtypes=(torch.int8, torch.float32))
+                      dtypes=(torch.int8, params.twister.dtype))
     if params.twister.data_ptr() % 16:
         raise ValueError("project_reads: the twister must start on 16 bytes (bulk copies)")
     V, d = params.twister.shape
@@ -532,7 +565,7 @@ def project_reads(
         "kpop_embedding_bag" + suffix,
         base_codes.data_ptr(), B, L, params.k, int(params.canonical),
         params.base, *vocab, V,
-        params.twister.data_ptr(), d, int(normalize), S,
+        params.twister.data_ptr(), BAG_ROW_TYPES[params.twister.dtype], d, int(normalize), S,
         iwork.data_ptr(), fwork.data_ptr(), out.data_ptr(),
     )
     return out
@@ -543,12 +576,40 @@ def project(
 ) -> torch.Tensor:
     """Spectra ``[B, V]`` -> twisted coordinates ``[B, d]``: an f32 product
     with the twister, divided by each row's total count (lib/Twister.ml:
-    173-183; linear, so the small output is divided, not the spectrum)."""
-    out = spectra @ params.twister
+    173-183; linear, so the small output is divided, not the spectrum).
+
+    With a bf16 twister the f32 spectrum is cast to bf16, as the JAX
+    package's ``astype`` does (counts above 256 round), and multiplied
+    with an f32 output (:func:`bf16_product`); the row sums are taken on
+    the f32 spectrum."""
+    if params.twister.dtype == torch.bfloat16:
+        out = bf16_product(spectra.to(torch.bfloat16), params.twister)
+    else:
+        out = spectra @ params.twister
     if normalize:
         sums = spectra.sum(dim=1)
         out = out / torch.where(sums == 0.0, torch.ones_like(sums), sums)[:, None]
     return out
+
+
+def bf16_product_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`bf16_product`: the f32 product of the
+    widened values."""
+    return a.float() @ b.float()
+
+
+def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``[B, V]`` bf16 x ``[V, d]`` bf16 -> ``[B, d]`` f32: the JAX
+    package's ``jnp.dot(..., preferred_element_type=float32)``.  On a card
+    one cuBLAS GEMM with f32 accumulation and an f32 output
+    (``aten::mm.dtype``), with no f32 copy of either operand and no bf16
+    rounding of the result; on the CPU, where torch has no such kernel,
+    :func:`bf16_product_ref`."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"bf16_product: bf16 operands, got {a.dtype} and {b.dtype}")
+    if a.device.type == "cpu":
+        return bf16_product_ref(a, b)
+    return torch.mm(a, b, out_dtype=torch.float32)
 
 
 def distances_to_classes(

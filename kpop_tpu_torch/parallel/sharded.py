@@ -24,9 +24,13 @@ does what those functions compute in float64, without the limbs:
   (the JAX package brings phi to the host block by block too).
 
 ``precision="fast"`` is the JAX ``_ca_math``: everything on the device in
-f32, ``torch.linalg.eigh`` included.  The HBM-budgeted streamed path
-(``_ca_fit_streamed``) is not ported yet: a fit whose resident footprint
-exceeds the budget raises.
+f32, ``torch.linalg.eigh`` included.
+
+A fit whose resident footprint exceeds the device budget
+(:func:`_hbm_budget`) streams (:func:`_ca_fit_streamed`, the counterpart of
+the JAX function of that name): the wire table goes to the card in row
+blocks, two at a time, once for the Gram and once more for phi, so the
+device holds a few blocks and never the table.
 """
 
 from __future__ import annotations
@@ -40,18 +44,24 @@ import torch
 
 from ..ops import gram
 
-STREAMED_NOTE = (
-    "the streamed CA path (_ca_fit_streamed) is not ported to "
-    "kpop_tpu_torch yet (ROADMAP.md, queue 1)"
-)
-
 #: set by the last dd-path ca_fit_sharded call: the wire type of the
 #: uploaded table, "u8"/"u16"/"f32" on the compact path, "f64" on the
 #: fallback for signed or f32-inexact tables
 LAST_DD_UPLOAD: str | None = None
 #: seconds per phase of the last dd-path fit (masses, upload, gram, eigh,
-#: phi), the device synchronized at each mark
+#: phi; a streamed fit's gram and phi passes hold their uploads and it has
+#: no upload phase), the device synchronized at each mark
 LAST_CA_PHASES: dict[str, float] = {}
+#: the geometry of the last dd-path fit if it streamed, else None: the wire
+#: type, rows a block, blocks, the budget, a wire block's bytes and the
+#: wire blocks live at once (the JAX package's keys), and the device bytes
+#: the blocks were sized to (``footprint_bytes``) with phi's sub-block rows
+LAST_CA_STREAM: dict | None = None
+#: bytes an entry of each wire type
+WIRE_BYTES = {"u8": 1, "u16": 2, "f32": 4, "f64": 8}
+#: what the caching allocator may add to a streamed fit's tensors: each of
+#: its two dozen is rounded up to 512 bytes
+ALLOC_SLACK = 24 * 512
 
 
 class _PhaseTimer:
@@ -239,6 +249,7 @@ def ca_fit_sharded(
     hbm_bytes: int | None = None,
     verbose: bool = False,
     device: torch.device | str | None = None,
+    _stream_probe=None,
 ):
     """Fit CA on one device.
 
@@ -259,12 +270,16 @@ def ca_fit_sharded(
     column vector so that an integer table keeps its compact wire.
 
     ``hbm_bytes``: device residency budget (default :func:`_hbm_budget`;
-    0 disables it): the wire table, plus the f32 twister with
-    ``phi="device"`` or, with ``phi="host"``, two blocks of S's size (a
-    block of S and the outer product it subtracts while it is made) and two
-    phi blocks (the one being made and the one in copy).  A fit whose resident footprint exceeds it raises
-    ``NotImplementedError``: the streamed path is not ported yet.
-    ``verbose`` prints the phase times to stderr.
+    0 disables it).  The resident footprint is the wire table, two blocks
+    of S's size (a block of S and the outer product it subtracts while it
+    is made) and two phi blocks (the one being made and the one in copy, or
+    being written into the twister), plus the f32 twister with
+    ``phi="device"``.  A fit whose resident footprint exceeds the budget
+    streams (:func:`_ca_fit_streamed`; :data:`LAST_CA_STREAM` records its
+    blocks), with the same outputs.  ``verbose`` prints the phase times to
+    stderr.
+    ``_stream_probe`` (a test hook) is called once for each block a
+    streamed fit retires.
     """
     from ..config import device as default_device
 
@@ -285,7 +300,8 @@ def ca_fit_sharded(
         return coords.cpu().numpy(), inertia.cpu().numpy(), tw, sv.cpu().numpy()
     if precision != "dd":
         raise ValueError(f"unknown CA precision {precision!r}")
-    global LAST_DD_UPLOAD
+    global LAST_DD_UPLOAD, LAST_CA_STREAM
+    LAST_CA_STREAM = None
     tm = _PhaseTimer("ca_fit_sharded", device, verbose)
     N = np.asarray(table)
     w = None if col_weights is None else np.asarray(col_weights, dtype=np.float64)
@@ -298,30 +314,29 @@ def ca_fit_sharded(
     # the compact wire when every value is exactly f32-representable, else
     # the f64 table: 8 B an entry, as the JAX fallback's two f32 limbs
     compact, kind = _compact_exact_cast(N)
-    if compact is None:
-        compact, kind = np.asarray(N, dtype=np.float64), "f64"
+    if compact is None:  # the f64 wire: cast as it is uploaded
+        compact, kind = N, "f64"
     else:
         alpha = rs
     # phi's f64 row blocks of S, at most block_bytes each
     step = max(1, block_bytes // max(1, ns * 8))
     budget = hbm_bytes if hbm_bytes is not None else _hbm_budget(device)
-    resident = nk * ns * compact.itemsize
+    # the wire table; S and its outer product, the phi block being made and
+    # the one in copy (or being written into the twister); the f32 twister
+    resident = nk * ns * WIRE_BYTES[kind] + min(step, nk) * (2 * ns + 2 * d) * 8
     if phi == "device":
         resident += nk * d * 4
-    else:  # S and its outer product, the phi block being made and the one in copy
-        resident += min(step, nk) * (2 * ns + 2 * d) * 8
-    if budget and resident > budget:
-        raise NotImplementedError(
-            f"ca_fit_sharded: the resident table and twister need {resident} "
-            f"bytes of device memory, above the budget of {budget} "
-            f"(KPOP_CA_HBM_BYTES); {STREAMED_NOTE}"
-        )
     LAST_DD_UPLOAD = kind
+    if budget and resident > budget:
+        return _ca_fit_streamed(
+            compact, kind, d, d_full, (alpha, u, beta, v, rs, c_safe), phi, budget, step,
+            device, tm, _stream_probe,
+        )
 
     def up(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    x = up(compact)
+    x = up(compact if kind != "f64" else np.asarray(compact, dtype=np.float64))
     alpha_d, u_d, beta_d, v_d = (up(np.asarray(a, np.float64)) for a in (alpha, u, beta, v))
     tm.mark("upload")
     G = gram.residual_gram(x, alpha_d, u_d, beta_d, v_d).cpu().numpy()
@@ -344,46 +359,257 @@ def ca_fit_sharded(
         for i in range(0, nk, step):
             tw[i : i + step] = phi_block(i, min(nk, i + step))
     else:
-        tw = _blocks_to_host(phi_block, nk, d, step, device).T
+        tw = _blocks_to_host(phi_block, nk, d, _ranges(0, nk, step), device).T
     tm.mark("phi")
     return sample_coords, inertia, tw, sv
 
 
-def _blocks_to_host(make_block, nk: int, d: int, step: int,
-                    device: torch.device) -> np.ndarray:
-    """The ``[nk, d]`` float64 rows ``make_block(i, j)`` for row blocks of
-    ``step``, gathered on the host as they are made.  On a card each block
-    is copied on a side stream into one of two pinned staging buffers, so
-    the copy of a block overlaps the making of the next; the host copies a
-    buffer out only when it is needed again.  A device block lives until
-    its copy is done."""
+def _ranges(i: int, j: int, step: int) -> list[tuple[int, int]]:
+    """Rows ``[i, j)`` in consecutive ranges of at most ``step``."""
+    return [(a, min(j, a + step)) for a in range(i, j, step)]
+
+
+def _stream_footprint(rows: int, ns: int, d: int, wire_bytes: int, sub_step: int,
+                      n_sm: int) -> int:
+    """Device bytes of a streamed fit with wire blocks of ``rows`` rows:
+    two blocks of the wire table and of the three float64 row vectors
+    (alpha, u and phi's row scale), beta and v; then the larger of the two
+    passes: the Gram pass's G and the kernel's workspace
+    (:func:`~..ops.gram.workspace_doubles` for its split-K slices of a
+    block), or the phi pass's V / sv, two blocks of S's size and two phi
+    blocks, in sub-blocks of at most ``sub_step`` rows; and
+    :data:`ALLOC_SLACK`."""
+    blocks = 2 * rows * (ns * wire_bytes + 3 * 8) + 2 * ns * 8 + ALLOC_SLACK
+    slices = gram.split_plan(rows, ns, n_sm)[0]
+    gram_pass = (ns * ns + gram.workspace_doubles(rows, ns, slices, True)) * 8
+    phi_pass = (ns * d + 2 * min(sub_step, rows) * (ns + d)) * 8
+    return blocks + max(gram_pass, phi_pass)
+
+
+def _stream_block_rows(budget: int, nk: int, ns: int, d: int, wire_bytes: int,
+                       sub_step: int, n_sm: int) -> int:
+    """The most rows a wire block may hold with :func:`_stream_footprint`
+    within ``budget`` (at least one, with a warning when even one row is
+    above it)."""
+    def fits(rows: int) -> bool:
+        return _stream_footprint(rows, ns, d, wire_bytes, sub_step, n_sm) <= budget
+
+    if not fits(1):
+        sys.stderr.write(
+            "ca_fit_sharded: KPOP_CA_HBM_BYTES=%d is below the smallest streamed "
+            "block (%d B); streaming one row a block\n"
+            % (budget, _stream_footprint(1, ns, d, wire_bytes, sub_step, n_sm))
+        )
+        return 1
+    lo, hi = 1, nk  # fits(lo) holds throughout
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+class _Staging:
+    """Two slots of pinned host buffers and a side stream that copies between
+    them and the device: the double buffering of :class:`_BlockStream` (host
+    to device) and :func:`_blocks_to_host` (device to host).  A slot's host
+    buffers are handed out again only once its last copy is done
+    (:meth:`claim`), so the host works on one slot while the other is in
+    flight."""
+
+    def __init__(self, specs, device: torch.device):
+        self.host = [[torch.empty(shape, dtype=dt, pin_memory=True) for shape, dt in specs]
+                     for _ in range(2)]
+        self.copier = torch.cuda.Stream(device)
+        self.done: list = [None, None]  # the slot's last copy done
+
+    def claim(self, slot: int) -> list[torch.Tensor]:
+        """The slot's host buffers, once its last copy is done."""
+        if self.done[slot] is not None:
+            self.done[slot].synchronize()
+            self.done[slot] = None
+        return self.host[slot]
+
+    def copy(self, slot: int, pairs, after) -> torch.cuda.Event:
+        """``dst.copy_(src)`` for each ``(dst, src)`` of ``pairs`` on the side
+        stream, once the event ``after`` (if any) is done; returns the event
+        of the slot's copies."""
+        with torch.cuda.stream(self.copier):
+            if after is not None:
+                self.copier.wait_event(after)
+            for dst, src in pairs:
+                dst.copy_(src, non_blocking=True)
+            self.done[slot] = self.copier.record_event()
+        return self.done[slot]
+
+
+class _BlockStream:
+    """Row blocks of host arrays uploaded in turn into two device buffers.
+
+    ``sources`` are ``(array, torch dtype)`` pairs of host arrays of the same
+    rows.  :meth:`get` makes a block of rows resident and returns its device
+    views.  On a card each block is cast (or copied, when the source has its
+    dtype already) on the host into a slot of :class:`_Staging` and copied on
+    its side stream into one of two device buffers, so the upload of a block
+    overlaps the work the caller enqueued on the block before it; a device
+    buffer is written again only once the work enqueued on it is done.  On
+    the CPU each block is cast straight into its buffer."""
+
+    def __init__(self, sources, rows: int, device: torch.device):
+        self.sources = sources
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.dev = [[torch.empty((rows,) + a.shape[1:], dtype=dt, device=device)
+                     for a, dt in sources] for _ in range(2)]
+        self.slot = 1
+        if self.cuda:
+            self.staging = _Staging([((rows,) + a.shape[1:], dt) for a, dt in sources], device)
+            self.freed: list = [None, None]  # the work on the slot's device buffers done
+
+    def get(self, i: int, j: int) -> list[torch.Tensor]:
+        """Device views of rows ``[i, j)`` of each source; the buffers of
+        the block before are released once the work enqueued on them by
+        now is done."""
+        n = j - i
+        if self.cuda:
+            self.freed[self.slot] = torch.cuda.current_stream(self.device).record_event()
+        self.slot = slot = 1 - self.slot
+        bufs = self.staging.claim(slot) if self.cuda else self.dev[slot]
+        for (a, _), buf in zip(self.sources, bufs):
+            np.copyto(buf[:n].numpy(), a[i:j], casting="unsafe")
+        if self.cuda:
+            done = self.staging.copy(
+                slot, [(dv[:n], h[:n]) for dv, h in zip(self.dev[slot], bufs)], self.freed[slot])
+            torch.cuda.current_stream(self.device).wait_event(done)
+        return [buf[:n] for buf in self.dev[slot]]
+
+
+def _ca_fit_streamed(wire_table, kind: str, d: int, d_full: int, vectors: tuple, phi: str,
+                     budget: int, step: int, device: torch.device, tm: _PhaseTimer,
+                     on_block=None):
+    """The CA fit of :func:`ca_fit_sharded` in row blocks, within
+    ``budget`` bytes of device memory: the counterpart of the JAX
+    ``_ca_fit_streamed``.
+
+    ``wire_table`` is the host table on its wire (``kind``; for ``"f64"``
+    the table itself, cast block by block) and ``vectors`` the masses
+    ``(alpha, u, beta, v, rs, c_safe)``.  Pass 1 uploads each block
+    (:class:`_BlockStream`) and adds its Gram into one float64 G
+    (``csrc/ca_gram.cu``, accumulating), so the blocks' Grams are summed
+    in block order; the host factors G.  Pass 2 uploads each block again
+    and makes its phi rows in sub-blocks of at most ``step`` rows (S
+    rebuilt in float64, a float64 ``torch.matmul`` with V / sv), kept in
+    the ``[K, d]`` f32 twister on the device with ``phi="device"`` or
+    copied to the host as they are made with ``phi="host"``.  The blocks
+    are sized by :func:`_stream_footprint`; with ``phi="device"`` the
+    twister, the requested output, comes first out of the budget when it
+    fits in it, and a warning names ``phi="host"`` when it does not.
+    ``on_block`` is called once for each block retired."""
+    global LAST_CA_STREAM
+    alpha, u, beta, v, rs, c_safe = vectors
+    nk, ns = wire_table.shape
+    wire_bytes = WIRE_BYTES[kind]
+    twister_bytes = nk * d * 4 if phi == "device" else 0
+    if twister_bytes > budget:
+        sys.stderr.write(
+            "ca_fit_sharded: phi='device' keeps the full [%d, %d] f32 twister on the "
+            "device (%d B, above the %d B budget); use phi='host'\n"
+            % (nk, d, twister_bytes, budget)
+        )
+    avail = budget - twister_bytes if twister_bytes <= budget else budget
+    n_sm = gram._sm_count(device) if device.type == "cuda" else gram.H100_SMS
+    rows = _stream_block_rows(avail, nk, ns, d, wire_bytes, step, n_sm)
+    blocks = _ranges(0, nk, rows)
+    LAST_CA_STREAM = {
+        "wire": kind,
+        "block_rows": rows,
+        "n_blocks": len(blocks),
+        "budget_bytes_per_device": budget,
+        "block_bytes_per_device": rows * ns * wire_bytes,
+        "max_live_blocks": 2,
+        "footprint_bytes": _stream_footprint(rows, ns, d, wire_bytes, step, n_sm) + twister_bytes,
+        "sub_block_rows": min(step, rows),
+    }
+    f64 = torch.float64
+    wire_dtype = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32, "f64": f64}[kind]
+    stream = _BlockStream(
+        [(wire_table, wire_dtype), (alpha, f64), (u, f64), (rs, f64)], rows, device)
+    beta_d, v_d = (torch.as_tensor(np.asarray(a, np.float64), device=device) for a in (beta, v))
+
+    # pass 1: G += S_b^T S_b, block by block
+    G = torch.zeros((ns, ns), dtype=f64, device=device)
+    for i, j in blocks:
+        x, a, uu, _ = stream.get(i, j)
+        gram.residual_gram(x, a, uu, beta_d, v_d, out=G)
+        if on_block is not None:
+            on_block()
+    G = G.cpu().numpy()
+    if not np.isfinite(G).all():
+        raise FloatingPointError("ca_fit_sharded: the Gram of the residual is not finite")
+    tm.mark("gram")
+    sample_coords, inertia, sv, V, sv_safe = _factor_gram_host(G, d, c_safe, d_full)
+    tm.mark("eigh")
+
+    # pass 2: phi = (S V / sv) rs, each block uploaded again
+    Vs = torch.as_tensor(V / sv_safe[None, :], device=device)
+    current: dict = {}  # the resident block: its first row and device views
+
+    def phi_rows(i: int, j: int) -> torch.Tensor:
+        i0, j0 = blocks[i // rows]
+        if current.get("first") != i0:
+            if current and on_block is not None:
+                on_block()
+            current.update(first=i0, views=stream.get(i0, j0))
+        x, a, uu, r = (t[i - i0 : j - i0] for t in current["views"])
+        S = gram.residual(x, a, uu, beta_d, v_d)
+        # scaled in place: no third block beside the two the budget counts
+        return torch.matmul(S, Vs).mul_(r[:, None])
+
+    sub = [r for i, j in blocks for r in _ranges(i, j, step)]
+    if phi == "device":
+        tw = torch.empty((nk, d), dtype=torch.float32, device=device)
+        for i, j in sub:
+            tw[i:j] = phi_rows(i, j)
+    else:
+        tw = _blocks_to_host(phi_rows, nk, d, sub, device).T
+    if on_block is not None:
+        on_block()
+    tm.mark("phi")
+    return sample_coords, inertia, tw, sv
+
+
+def _blocks_to_host(make_block, nk: int, d: int, ranges, device: torch.device) -> np.ndarray:
+    """The ``[nk, d]`` float64 rows ``make_block(i, j)`` for consecutive
+    row ``ranges`` ``(i, j)`` that cover them, gathered on the host as they
+    are made.  On a card each block is copied on the side stream of
+    :class:`_Staging` into one of its slots, so the copy of a block overlaps
+    the making of the next; the host copies a slot out only when it is
+    needed again.  A device block lives until its copy is done."""
     out = np.empty((nk, d), dtype=np.float64)
     if device.type != "cuda":
-        for i in range(0, nk, step):
-            out[i : i + step] = make_block(i, min(nk, i + step)).numpy()
+        for i, j in ranges:
+            out[i:j] = make_block(i, j).numpy()
         return out
-    rows = min(step, nk)
-    staging = [torch.empty((rows, d), dtype=torch.float64, pin_memory=True) for _ in range(2)]
-    copier = torch.cuda.Stream(device)
-    pending: list = [None, None]  # per buffer: (event, i, j, device block)
+    staging = _Staging([((max(j - i for i, j in ranges), d), torch.float64)], device)
+    pending: list = [None, None]  # per slot: (i, j, device block) of its copy
 
-    def drain(slot: int) -> None:
+    def drain(slot: int) -> torch.Tensor:
+        (buf,) = staging.claim(slot)
         if pending[slot] is not None:
-            done, i, j, _ = pending[slot]
-            done.synchronize()
-            out[i:j] = staging[slot][: j - i].numpy()
+            i, j, _ = pending[slot]
+            out[i:j] = buf[: j - i].numpy()
             pending[slot] = None
+        return buf
 
-    for n, i in enumerate(range(0, nk, step)):
-        j, slot = min(nk, i + step), n % 2
-        drain(slot)
+    for n, (i, j) in enumerate(ranges):
+        slot = n % 2
+        buf = drain(slot)
         block = make_block(i, j)
-        copier.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(copier):
-            staging[slot][: j - i].copy_(block, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(copier)
-        pending[slot] = (done, i, j, block)
+        staging.copy(slot, [(buf[: j - i], block)],
+                     torch.cuda.current_stream(device).record_event())
+        pending[slot] = (i, j, block)
     for slot in (0, 1):
         drain(slot)
     return out

@@ -17,6 +17,8 @@ bag's bound in chip_smoke.py): count x row rounds once where a plain sum
 adds the row count times, and the slices sum in another order.  The
 integer counts equal count_spectra_ref exactly."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -49,7 +51,7 @@ def emulate_bag(params, codes, normalize=True, n_sm=H100_SMS, seed=0):
     within each tile, as the scatter's atomics may."""
     rng = np.random.default_rng(seed)
     V, d = params.twister.shape
-    tw = params.twister.numpy()
+    tw = params.twister.float().numpy()  # a bf16 row widened, exactly
     idx = tp.vocab_lookup(params, codes).numpy()
     B = idx.shape[0]
     R, S = tp.BAG_TILE_ROWS, tp.bag_plan(V, d, n_sm)
@@ -224,6 +226,59 @@ def test_emulated_bag_on_read_like_codes(normalize, n_sm):
     got = check(tparams, jparams, codes, normalize, n_sm)
     if normalize:  # one k-mer: count x row / count is the row itself
         np.testing.assert_allclose(got[1], tparams.twister[tparams.vocab_lut[0]].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_sm", [16, H100_SMS])
+def test_emulated_bag_on_bf16_rows(n_sm):
+    """A bf16 twister: each row widened to f32 before the same products
+    and sums, against the plain version and JAX project_reads on the same
+    bf16 twister."""
+    import jax.numpy as jnp
+
+    tparams, jparams = random_params(7, V=600, d=37)
+    tw = tparams.twister.to(torch.bfloat16)
+    tparams = tp.ClassifierParams(tparams.vocab_lut, tw, tparams.metric, tparams.class_coords,
+                                  tparams.class_norms, K, True)
+    jparams = dataclasses.replace(jparams, twister=jnp.asarray(tw.float().numpy(), dtype=jnp.bfloat16))
+    assert np.array_equal(np.asarray(jparams.twister).view(np.int16), tw.view(torch.int16).numpy())
+    check(tparams, jparams, read_like_codes(8, B=130, L=460), True, n_sm)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_windows_hold_each_row_slice(dtype):
+    """The staged ring's copies of a hit row at d = 511 (odd, so rows
+    start at every offset within a chunk): from the 16-byte aligned
+    window at or just before twister[v, col0] (8 elements for bf16, 4 for
+    f32), the kernel's chunks of each column block, zero-filled past the
+    twister's end; the lane reads column col0 + c at the row's shift + c.
+    Every copy starts on 16 bytes, and an entry's staged offset (slot x
+    stride + shift) fits in its 16 bits."""
+    V, d = 300, 511
+    tw = torch.from_numpy(np.random.default_rng(5).standard_normal((V, d)).astype(np.float32))
+    tw = tw.to(dtype)
+    flat, size = tw.reshape(-1), V * d
+    # Row<Tw>: elements a 16-byte chunk, chunks a staged row, its elements
+    per = 16 // tw.element_size()
+    chunks = tp.BAG_COLS // per + 1
+    stride = per * chunks
+    assert (per, chunks) == ((8, 17) if dtype == torch.bfloat16 else (4, 33))
+    assert chunks * 16 >= tp.BAG_COLS * tw.element_size() + 16 - tw.element_size()
+    assert (tp.BAG_TILE_ROWS - 1) * stride + per - 1 < 1 << 16
+    shifts = set()
+    for col0 in range(0, d, tp.BAG_COLS):
+        cols = min(tp.BAG_COLS, d - col0)
+        for v in range(V):
+            start = (v * d + col0) & ~(per - 1)
+            shift = v * d + col0 - start
+            assert start * tw.element_size() % 16 == 0
+            staged = torch.zeros(stride, dtype=dtype)
+            for q in range(chunks):
+                src = start + per * q
+                n = max(0, min(per, size - src))  # the bytes the copy reads
+                staged[per * q : per * q + n] = flat[src : src + n]
+            assert torch.equal(staged[shift : shift + cols], tw[v, col0 : col0 + cols])
+            shifts.add(shift)
+    assert shifts == set(range(per))
 
 
 def test_emulated_bag_does_not_depend_on_the_key_order():

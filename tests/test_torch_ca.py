@@ -287,16 +287,24 @@ def test_split_plan_sizes_the_grid_in_waves(waves, want):
 
 @pytest.mark.parametrize("how", ["argument", "environment"])
 def test_over_budget_raises_naming_the_streamed_path(monkeypatch, how):
+    """Over the budget, by argument or by KPOP_CA_HBM_BYTES, the fit
+    streams (it raised before the streamed path was ported) and gives the
+    resident fit; KPOP_CA_HBM_BYTES=0 disables the budget and the fit stays
+    resident."""
     table = np.random.default_rng(2).integers(0, 200, size=(4096, 9)).astype(np.int32)
     kwargs = {"device": "cpu"}
     if how == "argument":
-        kwargs["hbm_bytes"] = 4 << 10
+        kwargs["hbm_bytes"] = 32 << 10
     else:
-        monkeypatch.setenv("KPOP_CA_HBM_BYTES", str(4 << 10))
-    with pytest.raises(NotImplementedError, match="_ca_fit_streamed"):
-        port.ca_fit_sharded(table, **kwargs)
+        monkeypatch.setenv("KPOP_CA_HBM_BYTES", str(32 << 10))
+    got = port.ca_fit_sharded(table, **kwargs)
+    assert port.LAST_CA_STREAM is not None and port.LAST_CA_STREAM["n_blocks"] > 1
+    assert port.LAST_CA_STREAM["budget_bytes_per_device"] == 32 << 10
     monkeypatch.setenv("KPOP_CA_HBM_BYTES", "0")  # 0 disables the budget
-    port.ca_fit_sharded(table, device="cpu")
+    want = port.ca_fit_sharded(table, device="cpu")
+    assert port.LAST_CA_STREAM is None
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-10, atol=0)
+    assert_ca_close(got, want)
 
 
 def test_factors_are_nan_where_s_has_none():

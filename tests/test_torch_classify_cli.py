@@ -96,7 +96,7 @@ def test_classify_torch_minkowski_host_path_equals_jax_cli(trained):
 
 
 @pytest.mark.parametrize(
-    "option", ["--dtype bf16", "--kmer-parallel 2"]
+    "option", ["--kmer-parallel 2"]
 )
 def test_classify_torch_unported_options_raise(trained, option):
     res = sh(

@@ -123,12 +123,17 @@ def test_host_phi_trains_between_the_footprints():
 
 
 def test_host_phi_budget_counts_one_block():
-    """Below the wire table plus two blocks of S's size and two phi blocks,
-    the fit raises; at it, it trains."""
+    """One byte below the wire table plus two blocks of S's size and two
+    phi blocks, the fit streams and gives the same fit within 1e-10; at it,
+    it stays resident."""
     table, block_bytes, _, streamed = budget_case()
-    with pytest.raises(NotImplementedError, match="_ca_fit_streamed"):
-        sharded.ca_fit_sharded(table, hbm_bytes=streamed - 1, block_bytes=block_bytes, device="cpu")
-    sharded.ca_fit_sharded(table, hbm_bytes=streamed, block_bytes=block_bytes, device="cpu")
+    got = sharded.ca_fit_sharded(table, hbm_bytes=streamed - 1, block_bytes=block_bytes,
+                                 device="cpu")
+    assert sharded.LAST_CA_STREAM is not None and sharded.LAST_CA_STREAM["n_blocks"] > 1
+    want = sharded.ca_fit_sharded(table, hbm_bytes=streamed, block_bytes=block_bytes, device="cpu")
+    assert sharded.LAST_CA_STREAM is None
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10 * float(np.abs(b).max()))
 
 
 def test_jax_stays_resident_at_the_same_budget():

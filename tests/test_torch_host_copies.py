@@ -21,7 +21,7 @@ WHOLE = [
     "io/framed.py", "io/reads.py", "io/spectra.py",
     "core/kmers.py", "core/matrix.py", "core/space.py", "core/transforms.py",
     "core/counter_db.py", "core/splits.py", "core/count.py", "core/ca.py",
-    "cli/twist.py", "cli/count.py",
+    "core/distance_iterator.py", "cli/twist.py", "cli/count.py",
 ]
 #: copy -> (original, top-level names that differ on purpose)
 DIFFERENT = {

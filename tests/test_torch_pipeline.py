@@ -249,9 +249,15 @@ def test_unported_paths_raise(trained):
         tp.params_from_jax(arrays, K, True, 4, "euclidean", device="cpu")
     with pytest.raises(NotImplementedError):
         tp.ClassifierParams(
-            tparams.vocab_lut, tparams.twister.to(torch.bfloat16), tparams.metric,
+            tparams.vocab_lut, tparams.twister.to(torch.float16), tparams.metric,
             tparams.class_coords, tparams.class_norms, K, True,
         )
+    # bf16 twisters are served (tests/test_torch_bf16.py)
+    bf16 = tp.ClassifierParams(
+        tparams.vocab_lut, tparams.twister.to(torch.bfloat16), tparams.metric,
+        tparams.class_coords, tparams.class_norms, K, True,
+    )
+    assert bf16.twister.dtype == torch.bfloat16 and bf16.metric.dtype == torch.float32
     # k above the dense-LUT limit builds the cuckoo lookup; above two limbs
     # split_k raises
     wide = tp.build_classifier_params(KmerSpace("DNA-ds", 13), twister, coords, device="cpu")

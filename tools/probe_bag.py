@@ -82,8 +82,8 @@ VARIANTS = {
     # the staged ring: the sums alone (no row copies), the copies alone
     "staged_sums_alone": [
         ("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 0;"),
-        ("cp_async16(rows + slot * ROW_STRIDE + 4 * q, twister + (bytes ? src : 0), bytes);",
-         "if (r < 0) cp_async16(rows + slot * ROW_STRIDE + 4 * q, twister + (bytes ? src : 0), bytes);")],
+        ("cp_async16(rows + slot * Row<Tw>::STRIDE + PER * q, twister + (bytes ? src : 0), bytes);",
+         "if (r < 0) cp_async16(rows + slot * Row<Tw>::STRIDE + PER * q, twister + (bytes ? src : 0), bytes);")],
     "staged_copies_alone": [
         ("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 0;"),
         ("add_read_set(acc[bi], se, rows, h[4 + b], h[5 + b], lane);", "(void)b;")],
@@ -104,10 +104,15 @@ PARENT_WIDE = (_I, _P, _I, _U, _U, _U, _U, _P, _P)
 
 
 def signature(name: str, parent: bool) -> tuple:
-    """The entry point's argument types; a parent's wide entry point takes
-    PARENT_WIDE in place of the package's vocabulary arguments."""
+    """The entry point's argument types; a parent's takes no row type
+    (the argument after the twister, eighth from the end: its rows are
+    f32), and its wide entry point takes PARENT_WIDE in place of the
+    package's vocabulary arguments."""
     sig = _build._SIGNATURES[name]
-    if not (parent and name.endswith("_wide")):
+    if not parent:
+        return sig
+    sig = sig[:-8] + sig[-7:]
+    if not name.endswith("_wide"):
         return sig
     return sig[:6] + PARENT_WIDE + sig[6 + len(_build._WIDE):]
 
@@ -182,8 +187,9 @@ def bag_launcher(fns, params, codes, parent: bool = False):
     out = torch.empty((Bn, d), dtype=torch.float32, device=codes.device)
     suffix, vocab = vocab_of(params, codes, parent)
     fn = fns["kpop_embedding_bag" + suffix]
+    row_type = () if parent else (pl.BAG_ROW_TYPES[params.twister.dtype],)
     head = (codes.data_ptr(), Bn, Ln, params.k, int(params.canonical), params.base, *vocab, V,
-            params.twister.data_ptr(), d, 1, S)
+            params.twister.data_ptr(), *row_type, d, 1, S)
 
     def launch(i, f, o):
         err = fn(*head, i.data_ptr(), f.data_ptr(), o.data_ptr(),
