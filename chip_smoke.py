@@ -36,14 +36,24 @@ prints no result.  It imports nothing of JAX or of the JAX package
    bag within the bag's tolerances and the float64 check, each bag input
    with the regime its accumulate takes, and the wide bag's row with one
    ``F.embedding_bag`` call on the rows of the plain wide lookup as its
-   yardstick; the Gram's blocked call of the streamed fit (the same table in
-   the row blocks of phase 4's streamed fits, accumulated) against the
-   one-launch Gram, its plain version and numpy, and at phase 7's block
-   rows against its plain version; the bag on bf16 rows at the slice's batch (k=10)
-   and at k=16 on the cuckoo hash, against its plain version on the bf16
-   twister and a float64 bag of the bf16 values, with ``F.embedding_bag`` on
-   the bf16 rows as its yardstick; the dense route's bf16 product (f32
-   output) against its plain version;
+   yardstick; the streamed fit's Gram pass (the same table in the row
+   blocks of phase 4's streamed fits, and in phase 7's block rows, through
+   one ``GramAccumulator`` each) against the one-launch Gram, the plain
+   version of its order and numpy, each bit-reproducible, with the DGEMM
+   and 10 ``torch.addmm`` of the blocks on pre-built float64 S as its
+   yardsticks; the bag on bf16 rows at the slice's batch (k=10, the staged
+   regime), on short read sets at k=10 (the gather regime), at k=16 on the
+   cuckoo hash (the gather regime) and on read sets of one genome at k=16
+   (the staged regime), each against its plain version on the bf16
+   twister and a float64 bag of the bf16 values, torch.equal to the f32
+   rows' order on the widened values, with ``F.embedding_bag`` on the bf16
+   rows as its yardstick; each bag row with its device time
+   (``torch.profiler``) beside its time as called; the dense route's bf16
+   product (f32 output)
+   against its plain version; the wrappers past the kernels' batch limits:
+   the count at 70,000 read sets (k=5) against its plain version and the
+   bag at 128 read sets of 8,388,608 windows against its own row groups
+   launched one by one and its plain version;
 4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
    tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
    at 1x coverage; vocabulary ~368k, d=511), trained on the card
@@ -134,6 +144,9 @@ SUMMARY_BOUND = 2e-4  # x max(1, |x|), tests/test_device_summaries.py:55
 # k-mers x 512 classes, held to float64 within 1e-12 of the largest |G|
 GRAM_K, GRAM_NS, GRAM_LAMBDA = 367_987, 512, 1.0
 GRAM_RTOL = 1e-12
+# the Gram's entry points: a kpop_ca_gram a row block, one kpop_ca_gram_finish
+# a Gram pass
+GRAM_LAUNCHES = ("kpop_ca_gram", "kpop_ca_gram_finish")
 # the card's peaks for the bound of each kernel, from NVIDIA's H100 SXM
 # data sheet
 HBM_BYTES_PER_S = 3.35e12
@@ -195,6 +208,15 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_call_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn()`` in ms: every kernel and copy it
+    runs, by ``torch.profiler``, over ``reps`` calls after a warm-up, per
+    call.  Unlike :func:`time_ms` it leaves out the host time before the
+    first launch, during which the card idles."""
+    fn()
+    return sum(device_ms_by_kernel(lambda: [fn() for _ in range(reps)]).values()) / reps
 
 
 def kernel_alone_ms(name: str, *args, reps: int = 10) -> float:
@@ -355,29 +377,99 @@ def bag_two_groups(params, rng, L: int) -> None:
         "max abs err to float64 %.3g, plain version %.3g" % (L, err, plain_err))
 
 
-def bf16_of(params):
-    """The same classifier parameters with the twister cast to bf16 on its
-    device: the only copy made."""
-    import torch
-
+def with_twister(params, twister):
+    """The same classifier parameters around another twister."""
     from kpop_tpu_torch.ops.pipeline import ClassifierParams
 
     return ClassifierParams(
-        params.vocab_lut, params.twister.to(torch.bfloat16), params.metric,
+        params.vocab_lut, twister, params.metric,
         params.class_coords, params.class_norms, k=params.k, canonical=params.canonical,
         base=params.base, vocab_hi=params.vocab_hi, vocab_lo=params.vocab_lo,
         cuckoo=params.cuckoo, cuckoo_seeds=params.cuckoo_seeds)
 
 
-def bag_bf16_row(params, codes, table, shape: str, replaces: str, launch: str, path: str) -> dict:
+def batch_limits(dev, params, rng) -> None:
+    """The wrappers' row groups past the kernels' batch limits, on the
+    card.  The count at 70,000 read sets (k = 5, a random vocabulary of 512
+    k-mers: a 143 MB spectrum), above the 65,535 of its grid: two launches,
+    torch.equal to the plain version.  The bag on 128 read sets of
+    8,388,608 windows (1.07 GB of codes, phase 3's parameters), past the
+    2^31 - 1 of its keys: launches of 127 and 1 read sets
+    (``bag_row_groups``), torch.equal to the same groups launched one by
+    one, and within the bag's tolerance of the plain version on three read
+    sets."""
+    import torch
+
+    from kpop_tpu_torch import _build
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    n, V = 4**5, 512
+    lut = np.full(n + 1, V, dtype=np.int32)
+    lut[rng.permutation(n)[:V]] = np.arange(V, dtype=np.int32)
+    p5 = pl.ClassifierParams(
+        torch.as_tensor(lut, device=dev), torch.randn((V, 64), device=dev),
+        torch.full((64,), 1.0 / 64, device=dev), torch.randn((3, 64), device=dev),
+        torch.ones(3, device=dev), k=5, canonical=True)
+    codes = torch.as_tensor(read_like_codes(rng, 70_000, 400), device=dev)
+    _build.LAUNCHES["kpop_count_spectra"] = 0
+    got = pl.count_spectra(p5, codes)
+    launched = _build.LAUNCHES["kpop_count_spectra"]
+    same = torch.equal(got, pl.count_spectra_ref(p5, codes))
+    log("count at [70000, 400], k=5, V=%d: %d launches (groups %s), torch.equal to the plain "
+        "version %s; %.4f ms" % (V, launched, pl.count_row_groups(70_000), same,
+                                 time_ms(lambda: pl.count_spectra(p5, codes), reps=3)))
+    if launched != len(pl.count_row_groups(70_000)) or not same:
+        raise AssertionError(f"count of 70,000 read sets: {launched} launches, equal {same}")
+    del p5, codes, got
+    W = 8_388_608
+    codes = torch.randint(0, 4, (BATCH, W + K - 1), dtype=torch.int8, device=dev,
+                          generator=torch.Generator(dev).manual_seed(11))
+    codes[:, 150::151] = -1
+    groups = pl.bag_row_groups(BATCH, W)
+    _build.LAUNCHES["kpop_embedding_bag"] = 0
+    got = pl.project_reads(params, codes)
+    launched = _build.LAUNCHES["kpop_embedding_bag"]
+    parts = torch.cat([pl.project_reads(params, codes[b0:b1]) for b0, b1 in groups])
+    same = torch.equal(got, parts)
+    some = [0, 1, BATCH - 1]
+    want = pl.project_reads_ref(params, codes[some], chunk=1 << 16)
+    err = float((got[some] - want).abs().max())
+    close = bool(torch.allclose(got[some], want, rtol=BAG_RTOL, atol=BAG_ATOL))
+    log("embedding_bag at [%d, %d] (%d windows a read set, 2 x 128 x W > 2^31 - 1): %d launches "
+        "(groups %s), torch.equal to the groups launched one by one %s; read sets %s within "
+        "rtol %g, atol %g of the plain version %s (max abs %.3g); %.2f ms"
+        % (BATCH, W + K - 1, W, launched, groups, same, some, BAG_RTOL, BAG_ATOL, close, err,
+           time_ms(lambda: pl.project_reads(params, codes), reps=3)))
+    if launched != len(groups) or len(groups) < 2 or not (same and close):
+        raise AssertionError(f"bag above the key limit: {launched} launches of {groups}, equal "
+                             f"{same}, within tolerance {close}")
+    del codes, got, parts, want
+    torch.cuda.empty_cache()
+
+
+def bf16_of(params):
+    """The same classifier parameters with the twister cast to bf16 on its
+    device, in the rows the port lays bf16 twisters out in
+    (``pipeline.bf16_rows``): the only copy made."""
+    from kpop_tpu_torch.ops.pipeline import bf16_rows
+
+    return with_twister(params, bf16_rows(params.twister))
+
+
+def bag_bf16_row(params, codes, table, shape: str, replaces: str, launch: str, path: str,
+                 regime: str | None = None) -> dict:
     """The bag on the same inputs with the twister cast to bf16: held to
     its plain version on the bf16 twister and to a float64 bag of the bf16
-    values (``bag_errors``), and off the f32 twister's bag by more than the
-    bag's tolerance (it read the bf16 rows, not f32 ones); its regime, its
-    time, its bound with each hit row read once at 2 d bytes, and
-    ``F.embedding_bag`` on the bf16 rows as the library yardstick.
-    ``table`` is the vocabulary the kernel reads (the LUT or the cuckoo
-    table)."""
+    values (``bag_errors``), off the f32 twister's bag by more than the
+    bag's tolerance (it read the bf16 rows, not f32 ones), and torch.equal
+    to the kernel's bag of the f32 twister that holds the bf16 values
+    widened (each bf16 element widened exactly, then the f32 rows' products
+    in their order: the order tests/test_torch_bag.py emulates); its regime
+    (``regime``, where given, must be taken), its time as called and its
+    device time (``device_ms``), its bound with each hit row read once at 2
+    d bytes, and ``F.embedding_bag`` on the bf16 rows as the library
+    yardstick.  ``table`` is the vocabulary the kernel reads
+    (the LUT or the cuckoo table)."""
     import torch
 
     from kpop_tpu_torch.ops import pipeline as pl
@@ -391,22 +483,32 @@ def bag_bf16_row(params, codes, table, shape: str, replaces: str, launch: str, p
     if not moved > BAG_ATOL + BAG_RTOL * float(f32_bag.abs().max()):
         raise AssertionError(f"bf16 bag at {shape} equals the f32 twister's bag ({moved:.3g}): "
                              "it did not read bf16 rows")
+    widened = pl.project_reads(with_twister(params, pb.twister.float()), codes)
+    if not torch.equal(got, widened):
+        raise AssertionError(f"bf16 bag at {shape} differs from the f32 rows' order on the "
+                             f"widened values: {float((got - widened).abs().max()):.3g}")
+    del widened
     lib, n_known, hit, entries, tiles = bag_library_call(pb, codes, want, rtol=BF16_LIBRARY_RTOL)
     d = pb.twister.shape[1]
+    taken = pl.bag_regime(entries, tiles)
     log("kernel embedding_bag bf16 at %s: %d known windows, %d distinct rows, %d entries in %d "
         "tiles: the %s regime; max abs err to float64 of the bf16 values %.3g, plain version "
-        "%.3g; %.3g off the f32 twister's bag"
-        % (shape, n_known, hit, entries, tiles, pl.bag_regime(entries, tiles), err, plain_err, moved))
+        "%.3g; %.3g off the f32 twister's bag; equal to the f32 order on the widened values"
+        % (shape, n_known, hit, entries, tiles, taken, err, plain_err, moved))
+    if regime is not None and taken != regime:
+        raise AssertionError(f"bf16 bag at {shape} takes the {taken} regime, not {regime}")
     row = dict(
         bound(codes.nbytes + table.nbytes + hit * d * 2 + got.nbytes,
               float(n_known) * d / F32_FLOPS * 1e3),
         library_ms=time_ms(lib, reps=5),
         err=float((got - want).abs().max()), err_f64=err, plain_err_f64=plain_err,
         ms=time_ms(lambda: pl.project_reads(pb, codes), reps=5),
+        device_ms=device_call_ms(lambda: pl.project_reads(pb, codes)),
         plain_ms=time_ms(lambda: pl.project_reads_ref(pb, codes), reps=3),
-        shape=shape + ", bf16 twister",
+        shape=shape + ", bf16 twister", regime=taken,
         tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL} of the plain version on the bf16 twister; err to "
-            f"float64 <= {F64_ERR_RATIO:g}x the plain version's",
+            f"float64 <= {F64_ERR_RATIO:g}x the plain version's; torch.equal to the f32 rows' "
+            "order on the widened values",
         source="kpop_tpu_torch/csrc/embedding_bag.cu", replaces=replaces, launch=launch, path=path,
     )
     del pb, got, want, f32_bag, lib
@@ -427,8 +529,14 @@ def bf16_product_check(spectra, twister) -> None:
 
     if not hasattr(torch.ops.aten.mm, "dtype"):
         raise AssertionError("this torch has no aten::mm.dtype: the bf16 product has no kernel")
-    a, b = spectra.to(torch.bfloat16), twister.to(torch.bfloat16)
+    a, b = spectra.to(torch.bfloat16), pl.bf16_rows(twister)
     got = pl.bf16_product(a, b)
+    flat_b = b.contiguous()  # the same values in rows of d: cuBLAS may take another kernel
+    flat_err = float((pl.bf16_product(a, flat_b) - got).abs().max())
+    if not flat_err <= BF16_PRODUCT_RTOL * float(got.abs().max()):
+        raise AssertionError(f"bf16 product: the twister's padded rows change it by {flat_err:.3g}")
+    flat_ms = time_ms(lambda: pl.bf16_product(a, flat_b))
+    del flat_b
     want = pl.bf16_product_ref(a, b)
     exact = a.double() @ b.double()
     scale = float(exact.abs().max())
@@ -440,11 +548,11 @@ def bf16_product_check(spectra, twister) -> None:
     ms = time_ms(lambda: pl.bf16_product(a, b))
     plain_ms = time_ms(lambda: pl.bf16_product_ref(a, b), reps=5)
     sgemm_ms = time_ms(lambda: spectra @ twister, reps=5)
-    log("bf16 product [%d, %d] x [%d, %d] (aten::mm.dtype, f32 output): max abs %.3g to plain "
-        "(bound %g of max |x| %.6g); to float64 %.3g, plain %.3g; %.4f ms, plain %.4f ms, the "
-        "f32 route's SGEMM %.4f ms"
-        % (*a.shape, *b.shape, err, BF16_PRODUCT_RTOL, scale, errs[0], errs[1], ms, plain_ms,
-           sgemm_ms))
+    log("bf16 product [%d, %d] x [%d, %d] (aten::mm.dtype, f32 output; the twister in rows of "
+        "%d): max abs %.3g to plain (bound %g of max |x| %.6g); to float64 %.3g, plain %.3g; "
+        "%.4f ms (contiguous twister %.4f ms), plain %.4f ms, the f32 route's SGEMM %.4f ms"
+        % (*a.shape, *b.shape, b.stride(0), err, BF16_PRODUCT_RTOL, scale, errs[0], errs[1], ms,
+           flat_ms, plain_ms, sgemm_ms))
 
 
 def bound(nbytes: float, flops_ms: float) -> dict:
@@ -721,62 +829,92 @@ def gram_row(dev) -> tuple[dict, dict]:
         tol=f"rel {GRAM_RTOL:g} of max |G| to plain and to numpy float64; bit-reproducible",
         source="kpop_tpu_torch/csrc/ca_gram.cu",
         replaces="kpop_tpu/parallel/sharded.py:174",
-        launch="kpop_ca_gram", path="train",
+        launch=GRAM_LAUNCHES, path="train",
     )
-    # the blocked call at the streamed fits' own geometry, on views of the
-    # resident table (the upload is the streamed fit's, phase 4): phase 4's
-    # blocks over the whole table (the headline has GRAM_K rows), and phase
-    # 7's block rows over the whole blocks that fit in it
+    # the streamed fits' Gram pass at their own geometry, on views of the
+    # resident table (the upload is the streamed fit's, phase 4): one
+    # GramAccumulator fed phase 4's blocks, and one fed phase 7's block rows
+    # (the table in 3 of them and a short last one)
     _, step = stream_geometry(K, ns, "u8", dev)
     _, wide_step = stream_geometry(LARGE_K_VOCAB, ns, "u8", dev)
 
-    def blocked(fn, rows: int = step, end: int = K):
-        G = torch.zeros((ns, ns), dtype=torch.float64, device=dev)
-        for i in range(0, end, rows):
-            j = min(end, i + rows)
-            fn(x[i:j], vecs[0][i:j], vecs[1][i:j], vecs[2], vecs[3], G)
-        return G
-
-    def kernel_block(xb, a, uu, b, vv, G):
-        gram.residual_gram(xb, a, uu, b, vv, out=G)
-
-    def plain_block(xb, a, uu, b, vv, G):
-        G += gram.residual_gram_ref(xb, a, uu, b, vv)
+    def accumulated(rows: int, plain: bool = False):
+        if plain:  # the same order in plain PyTorch, on the card
+            slices = gram.split_plan(rows, ns, gram._sm_count(dev))[0]
+            partial = torch.zeros((slices, ns, ns), dtype=torch.float64, device=dev)
+            for i in range(0, K, rows):
+                gram.accumulate_ref(partial, x[i:i + rows], vecs[0][i:i + rows],
+                                    vecs[1][i:i + rows], vecs[2], vecs[3])
+            return gram.finish_ref(partial, vecs[2])
+        acc = gram.GramAccumulator(vecs[2], vecs[3], rows)
+        for i in range(0, K, rows):
+            acc.add(x[i:i + rows], vecs[0][i:i + rows], vecs[1][i:i + rows])
+        return acc.finish()
 
     n_blocks = -(-K // step)
-    gb, gb_plain = blocked(kernel_block), blocked(plain_block)
-    wide_end = (K // wide_step) * wide_step
-    gw, gw_plain = (blocked(fn, wide_step, wide_end) for fn in (kernel_block, plain_block))
-    torch.cuda.synchronize()
-    gbn = gb.cpu().numpy()
-    rel_one = float(np.abs(gbn - g).max()) / scale
-    rel_f64_b = float(np.abs(gbn - want).max()) / scale
-    rel_plain_b = float(np.abs(gbn - gb_plain.cpu().numpy()).max()) / scale
-    rel_wide = float((gw - gw_plain).abs().max() / gw_plain.abs().max())
-    log("kernel ca_gram in %d blocks of %d rows (phase 4's), accumulated: max |G - one launch| "
-        "%.3g, |G - plain blocks| %.3g, |G - numpy float64| %.3g of max |G|; bit-identical on a "
-        "second call %s; in %d blocks of %d rows (phase 7's): |G - plain blocks| %.3g of max |G|"
-        % (n_blocks, step, rel_one, rel_plain_b, rel_f64_b,
-           bool(torch.equal(gb, blocked(kernel_block))), wide_end // wide_step, wide_step,
-           rel_wide))
-    if not max(rel_one, rel_f64_b, rel_plain_b, rel_wide) <= GRAM_RTOL:
-        raise AssertionError(f"blocked ca_gram off: {rel_one:.3g} to one launch, {rel_f64_b:.3g} "
-                             f"to numpy, {rel_plain_b:.3g} to plain, {rel_wide:.3g} to plain at "
-                             f"phase 7's blocks (bound {GRAM_RTOL:g})")
+    checks = {}
+    for label, rows in (("phase 4", step), ("phase 7", wide_step)):
+        Gb, Gb_plain = accumulated(rows), accumulated(rows, plain=True)
+        again = torch.equal(Gb, accumulated(rows))
+        gbn = Gb.cpu().numpy()
+        checks[label] = dict(
+            one=float(np.abs(gbn - g).max()) / scale, f64=float(np.abs(gbn - want).max()) / scale,
+            plain=float(np.abs(gbn - Gb_plain.cpu().numpy()).max()) / scale,
+            plain_f64=float(np.abs(Gb_plain.cpu().numpy() - want).max()), again=again,
+            blocks=-(-K // rows), rows=rows)
+        log("kernel ca_gram accumulated over %d blocks of %d rows (%s's): max |G - one launch| "
+            "%.3g, |G - plain order| %.3g, |G - numpy float64| %.3g of max |G|; bit-identical on "
+            "a second call %s" % (-(-K // rows), rows, label, checks[label]["one"],
+                                  checks[label]["plain"], checks[label]["f64"], again))
+        if label == "phase 4":
+            gb_err = float(np.abs(gbn - Gb_plain.cpu().numpy()).max())
+        del Gb, Gb_plain
+    bad = {k: v for k, v in checks.items()
+           if not (max(v["one"], v["f64"], v["plain"]) <= GRAM_RTOL and v["again"])}
+    if bad:
+        raise AssertionError(f"accumulated ca_gram off (bound {GRAM_RTOL:g} of max |G|, "
+                             f"bit-reproducible): {bad}")
+    # the same-geometry library yardstick: torch.addmm of each block's
+    # S_b^T S_b into G, on pre-built float64 blocks of S
+    S = gram.residual(x, *vecs)
+    blocks = [S[i:i + step] for i in range(0, K, step)]
+    G_lib = torch.zeros((ns, ns), dtype=torch.float64, device=dev)
+
+    def addmm():
+        G_lib.zero_()
+        for b in blocks:
+            G_lib.addmm_(b.T, b)
+        return G_lib
+
+    addmm_rel = float((addmm() - got).abs().max()) / scale
+    addmm_ms = time_ms(addmm)
+    del S, blocks, G_lib
+    # the kernels' own device time, one launch and the streamed pass
+    for label, rows in (("one launch", K), ("phase 4's blocks", step)):
+        by_kernel = device_ms_by_kernel(lambda: accumulated(rows))
+        log("kpop_ca_gram's kernels in %s, device ms (torch.profiler): %s" % (label, ", ".join(
+            "%s %.4f" % (k.replace("void ", "").replace("(anonymous namespace)::", "")
+                         .split("(")[0][:40], v) for k, v in by_kernel.items())))
+    log("ca_gram's same-geometry yardstick: %d torch.addmm into G on pre-built float64 blocks "
+        "of S, %.4f ms, %.3g of max |G| off the kernel" % (n_blocks, addmm_ms, addmm_rel))
     blocked_row = dict(
         row,
-        # G read and written once more a block
+        # G's partials read and written once more a block (the first block
+        # writes them, the finish reads them once)
         **bound(nbytes + 2 * (n_blocks - 1) * got.nbytes,
                 (K * ns * (ns + 1.0) / F64_TC_FLOPS + 3.0 * K * ns / F64_FLOPS) * 1e3),
-        err=float(np.abs(gbn - gb_plain.cpu().numpy()).max()), err_f64=rel_f64_b * scale,
-        plain_err_f64=float(np.abs(gb_plain.cpu().numpy() - want).max()),
-        ms=time_ms(lambda: blocked(kernel_block)),
-        plain_ms=time_ms(lambda: blocked(plain_block), reps=5),
+        err=gb_err, err_f64=checks["phase 4"]["f64"] * scale,
+        plain_err_f64=checks["phase 4"]["plain_f64"],
+        ms=time_ms(lambda: accumulated(step)),
+        plain_ms=time_ms(lambda: accumulated(step, plain=True), reps=5),
+        addmm_ms=addmm_ms,
         shape=f"[{K}, {ns}] u8 Poisson({GRAM_LAMBDA:g}) table in {n_blocks} blocks of {step} rows",
-        tol=f"rel {GRAM_RTOL:g} of max |G| to one launch, to plain blocks and to numpy float64",
+        tol=f"rel {GRAM_RTOL:g} of max |G| to one launch, to the plain order and to numpy "
+            "float64; bit-reproducible",
         path="train_streamed", block_rows=step, wide_block_rows=wide_step,
+        replaces="kpop_tpu/parallel/sharded.py:639",
     )
-    del x, vecs, got, plain, again, gb, gb_plain, gw, gw_plain
+    del x, vecs, got, plain, again
     torch.cuda.empty_cache()
     return row, blocked_row
 
@@ -878,6 +1016,67 @@ def wide_vocabulary(rng, codes, k: int, base: int, canonical: bool, V: int) -> n
     return rng.permutation(out)
 
 
+def wide_params(dev, space, kmer_codes, tw, sorted_limbs: bool = False):
+    """Classifier parameters of the uint64 k-mer codes ``kmer_codes`` around
+    the twister ``tw``: the cuckoo hash, or the sorted limbs (the fallback
+    the builder takes when no seed converges)."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+    from kpop_tpu_torch.ops.encode import split_k
+
+    if sorted_limbs:
+        limb = np.uint64(space.base ** split_k(space.k, space.base)[1])
+        ordered = np.sort(kmer_codes)
+        vocab = dict(vocab_lut=None, vocab_hi=(ordered // limb).astype(np.int32),
+                     vocab_lo=(ordered % limb).astype(np.int32))
+    else:
+        vocab, _order = pl.wide_vocab(space, kmer_codes)
+    vocab = {n: torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a
+             for n, a in vocab.items()}
+    d = tw.shape[1]
+    return pl.ClassifierParams(
+        twister=tw, metric=torch.full((d,), 1.0 / d, device=dev),
+        class_coords=torch.zeros((1, d), device=dev), class_norms=torch.ones(1, device=dev),
+        k=space.k, canonical=space.canonical, base=space.base, **vocab)
+
+
+def bf16_regime_rows(dev, rng, params, d: int) -> dict:
+    """The bag on bf16 rows at d = d in the regime each entry point does not
+    take on phase 3's batches (``bag_bf16_row``, the regime asserted): the
+    LUT entry point (k = 10) in the gather regime, on 128 read sets of 390
+    bases (a few entries a vocabulary tile); the wide one (k = 16, cuckoo) in
+    the staged regime, on 128 read sets of 30,208 bases, each 150 bp reads
+    from one 20 kb genome, around a vocabulary of 20,000 k-mers that holds a
+    quarter of the genome's (thousands of entries a tile)."""
+    import torch
+
+    from kpop_tpu_torch.core.kmers import KmerSpace
+
+    rows = {}
+    short = torch.as_tensor(read_like_codes(rng, BATCH, 390), device=dev)
+    rows["embedding_bag_bf16_gather"] = bag_bf16_row(
+        params, short, params.vocab_lut, f"[{BATCH}, 390] int8 codes, k={K}, twister "
+        f"{list(params.twister.shape)}", "kpop_tpu/ops/pipeline.py:237", "kpop_embedding_bag",
+        "slice_bf16", regime="gather")
+    genome = rng.integers(0, 4, size=20_000, dtype=np.int8)
+    starts = rng.integers(0, len(genome) - 150, size=(BATCH, 30_208 // 151 + 1))
+    reads = genome[starts[:, :, None] + np.arange(150)]  # [B, reads, 150]
+    dense = np.concatenate([reads, np.full(reads.shape[:2] + (1,), -1, np.int8)], axis=2)
+    dense = torch.as_tensor(dense.reshape(BATCH, -1)[:, :30_208].copy(), device=dev)
+    space = KmerSpace("DNA-ds", LARGE_K)
+    kmers = wide_vocabulary(rng, dense, LARGE_K, 4, True, 20_000)
+    tw = torch.randn((20_000, d), generator=torch.Generator(dev).manual_seed(8), device=dev)
+    wide = wide_params(dev, space, kmers, tw)
+    rows["embedding_bag_wide_bf16_staged"] = bag_bf16_row(
+        wide, dense, wide.cuckoo, f"[{BATCH}, 30208] int8 codes of one 20 kb genome, "
+        f"k={LARGE_K}, V=20000, cuckoo", "kpop_tpu/ops/pipeline.py:237 with :165-176",
+        "kpop_embedding_bag_wide", "large_k_bf16", regime="staged")
+    del short, dense, wide, tw
+    torch.cuda.empty_cache()
+    return rows
+
+
 def wide_blocks(dev, rng, codes, twister, first: int = 4) -> dict:
     """Large-k inputs for the wide count and bag, each with classifier
     parameters around a random twister: phase 3's batch at k = 16 with
@@ -888,24 +1087,9 @@ def wide_blocks(dev, rng, codes, twister, first: int = 4) -> dict:
     import torch
 
     from kpop_tpu_torch.core.kmers import KmerSpace
-    from kpop_tpu_torch.ops import pipeline as pl
-    from kpop_tpu_torch.ops.encode import split_k
 
     def params_of(space, kmer_codes, tw, sorted_limbs=False):
-        if sorted_limbs:  # the fallback the builder takes when no seed converges
-            limb = np.uint64(space.base ** split_k(space.k, space.base)[1])
-            ordered = np.sort(kmer_codes)
-            vocab = dict(vocab_lut=None, vocab_hi=(ordered // limb).astype(np.int32),
-                         vocab_lo=(ordered % limb).astype(np.int32))
-        else:
-            vocab, _order = pl.wide_vocab(space, kmer_codes)
-        vocab = {n: torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a
-                 for n, a in vocab.items()}
-        d = tw.shape[1]
-        return pl.ClassifierParams(
-            twister=tw, metric=torch.full((d,), 1.0 / d, device=dev),
-            class_coords=torch.zeros((1, d), device=dev), class_norms=torch.ones(1, device=dev),
-            k=space.k, canonical=space.canonical, base=space.base, **vocab)
+        return wide_params(dev, space, kmer_codes, tw, sorted_limbs)
 
     B, L = codes.shape
     out = {}
@@ -993,6 +1177,7 @@ def wide_rows(dev, rng, codes, d: int) -> dict:
             library_ms=time_ms(bag_lib, reps=5),
             tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL}; err to float64 <= {F64_ERR_RATIO:g}x the plain version's",
             ms=time_ms(lambda: pl.project_reads(params, c), reps=5),
+            device_ms=device_call_ms(lambda: pl.project_reads(params, c)),
             plain_ms=time_ms(lambda: pl.project_reads_ref(params, c), reps=3),
             source="kpop_tpu_torch/csrc/embedding_bag.cu", launch="kpop_embedding_bag_wide",
             **common)
@@ -1041,6 +1226,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
 
     bag_err_f64, bag_plain_err_f64 = bag_errors(params, codes, "at the slice's batch")
     bag_two_groups(params, np.random.default_rng(3), L)
+    batch_limits(dev, params, np.random.default_rng(12))
     got = pl.project_reads(params, codes)
     want = pl.project_reads_ref(params, codes)
     # codes and LUT read once, each twister row the reads hit read once, the
@@ -1060,6 +1246,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         err=float((got - want).abs().max()),
         err_f64=bag_err_f64, plain_err_f64=bag_plain_err_f64,
         ms=time_ms(lambda: pl.project_reads(params, codes), reps=5),
+        device_ms=device_call_ms(lambda: pl.project_reads(params, codes)),
         plain_ms=time_ms(lambda: pl.project_reads_ref(params, codes), reps=3),
         shape=f"[{B}, {L}] int8 codes, k={K}, twister [{V}, {d}]",
         tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL}; err to float64 <= {F64_ERR_RATIO:g}x the plain version's",
@@ -1072,6 +1259,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         params, codes, params.vocab_lut, f"[{B}, {L}] int8 codes, k={K}, twister [{V}, {d}]",
         "kpop_tpu/ops/pipeline.py:237", "kpop_embedding_bag", "slice_bf16")
     rows.update(wide_rows(dev, np.random.default_rng(7), codes, d))
+    rows.update(bf16_regime_rows(dev, np.random.default_rng(9), params, d))
 
     # the distance tile at four shapes.  The slice's: [B, d] twisted reads
     # against [C, d] classes, with the class norms of the parameters, as
@@ -1132,9 +1320,10 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     rows["ca_gram"], rows["ca_gram_streamed"] = gram_row(dev)
     for name, r in rows.items():
         log(
-            "kernel %-26s %s: max abs err %.3g (%s); kernel %.4f ms, plain "
+            "kernel %-26s %s: max abs err %.3g (%s); kernel %.4f ms%s, plain "
             "%.4f ms, library %s ms, bound %.4f ms (%s)"
-            % (name, r["shape"], r["err"], r["tol"], r["ms"], r["plain_ms"],
+            % (name, r["shape"], r["err"], r["tol"], r["ms"],
+               " (device %.4f ms)" % r["device_ms"] if "device_ms" in r else "", r["plain_ms"],
                "%.4f" % r["library_ms"] if r["library_ms"] is not None else "none",
                r["bound_ms"], r["bound_by"])
         )
@@ -1260,7 +1449,8 @@ def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag")) -
     after, each of ``kernels`` launched; finite [read sets, classes]
     distances and top-1 accuracy >= ACCURACY_GATE on each route; then each
     route's device time a batch and its largest kernels.  Returns (distance
-    blocks by route, launches, accuracy, device ms a batch)."""
+    blocks by route, launches, accuracy, device ms a batch, and device ms a
+    batch by launch for each route)."""
     from kpop_tpu_torch import _build
     from kpop_tpu_torch.cli.classify import DeviceStep
 
@@ -1283,15 +1473,16 @@ def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag")) -
             % (label, path, accuracy[path], len(truth)))
         if accuracy[path] < ACCURACY_GATE:
             raise AssertionError(f"{label}, {path}: accuracy {accuracy[path]} < {ACCURACY_GATE}")
-    busy = {}
+    busy, launch_ms = {}, {}
     for path in paths:
         by_kernel = device_ms_by_kernel(lambda: serve(DeviceStep(params, path), batches))
         busy[path] = sum(by_kernel.values()) / len(batches)
+        launch_ms[path] = {k: v / len(batches) for k, v in by_kernel.items()}
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
         log("%s: %s route device time %.4f ms a batch of %d (torch.profiler), by launch: %s"
             % (label, path, busy[path], len(batches[0][0]),
                ", ".join("%s %.4f" % (k[:40], v / len(batches)) for k, v in top)))
-    return dmats, launches, accuracy, busy
+    return dmats, launches, accuracy, busy, launch_ms
 
 
 def host_chain_distances(space, twister, coords, metric_vec, seqs):
@@ -1386,11 +1577,16 @@ def streamed_fits(dev, table, col_w, label: str, host=None, sv_resident=None,
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - live
         st = dict(sharded.LAST_CA_STREAM or {})
+        gram_launches = [_build.LAUNCHES[name] for name in GRAM_LAUNCHES]
         log("%s: streamed fit, phi on the %s: %s; %.3f s: %s; peak device memory %d B above the "
-            "%d B live before, budget %d B; kpop_ca_gram launched %d times"
+            "%d B live before, budget %d B; kpop_ca_gram launched %d times, "
+            "kpop_ca_gram_finish %d"
             % (label, phi, json.dumps(st), wall,
                ", ".join("%s %.4f s" % kv for kv in sharded.LAST_CA_PHASES.items()),
-               peak, live, limit, _build.LAUNCHES["kpop_ca_gram"]))
+               peak, live, limit, *gram_launches))
+        if gram_launches != [st.get("n_blocks"), 1]:
+            raise AssertionError(f"{label}: the Gram pass launched {gram_launches} of "
+                                 f"{GRAM_LAUNCHES} for {st.get('n_blocks')} blocks")
         if st.get("n_blocks", 0) < STREAM_BLOCKS_MIN or sharded.LAST_DD_UPLOAD != kind \
                 or st["block_rows"] != rows:
             raise AssertionError(f"{label}: the fit with phi on the {phi} did not stream in "
@@ -1441,6 +1637,17 @@ def streamed_fits(dev, table, col_w, label: str, host=None, sv_resident=None,
     return res
 
 
+def log_accumulate(label: str, f32_ms: dict, bf16_ms: dict) -> None:
+    """The bag route's accumulate a batch (the gather and the staged ring,
+    by torch.profiler) on f32 and on bf16 rows, from the same run."""
+    def acc(by_kernel):
+        return {regime: sum(v for k, v in by_kernel.items() if "bag_" + regime in k)
+                for regime in ("gather", "accumulate")}
+
+    log("%s: bag route's accumulate a batch, device ms: bf16 rows %s, f32 rows %s"
+        % (label, json.dumps(acc(bf16_ms)), json.dumps(acc(f32_ms))))
+
+
 def bf16_serving(label: str, params, batches, dmats, kernels, paths) -> dict:
     """The read sets served on ``paths`` with parameters around a bf16
     twister: the main path of serve_routes (every count set to 0 just
@@ -1456,7 +1663,7 @@ def bf16_serving(label: str, params, batches, dmats, kernels, paths) -> dict:
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    got, launches, accuracy, busy = serve_routes(label, params, batches, kernels, paths)
+    got, launches, accuracy, busy, launch_ms = serve_routes(label, params, batches, kernels, paths)
     peak = torch.cuda.max_memory_allocated() - live
     err = {}
     for path in paths:
@@ -1470,7 +1677,8 @@ def bf16_serving(label: str, params, batches, dmats, kernels, paths) -> dict:
         raise AssertionError(f"{label}: bf16 serving took {peak} B, an f32 twister's {f32_bytes}")
     if max(err.values()) > BF16_BOUND:
         raise AssertionError(f"{label}: bf16 distances off the f32 route: {err}")
-    return dict(launches=launches, accuracy=accuracy, busy=busy, err=err, peak=peak)
+    return dict(launches=launches, accuracy=accuracy, busy=busy, err=err, peak=peak,
+                launch_ms=launch_ms)
 
 
 def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
@@ -1523,8 +1731,9 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
         % (sharded.LAST_DD_UPLOAD, train_s,
            ", ".join("%s %.4f s" % kv for kv in phases.items()),
            json.dumps(train_launches), card))
-    if not train_launches["kpop_ca_gram"]:
-        raise AssertionError("the train path never launched the Gram kernel")
+    if not train_launches["kpop_ca_gram"] or train_launches["kpop_ca_gram_finish"] != 1:
+        raise AssertionError("the train path's Gram pass did not launch the Gram kernel and "
+                             f"one finish: {train_launches}")
     if phi_dev.shape != (len(vocab_hex), d) or phi_dev.dtype != torch.float32 or phi_dev.device.type != dev.type:
         raise AssertionError(f"device twister {phi_dev.dtype} {tuple(phi_dev.shape)} on {phi_dev.device}")
     # the f32 twister on the card cannot hold entries of a few hundred to
@@ -1580,12 +1789,14 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     batches = read_set_batches(rng, held_out, batch)
     n_seqs = sum(len(t) for t, _ in batches)
     width = max(len(s) for _, seqs in batches for s in seqs)
-    dmats, launches, accuracy, _busy = serve_routes("slice", params, batches, SLICE_KERNELS)
+    dmats, launches, accuracy, _busy, launch_ms = serve_routes("slice", params, batches,
+                                                               SLICE_KERNELS)
     # bf16 parameters around the streamed fit's device twister, both routes
     params16 = params_around_twister(space, vocab_hex, streamed.pop("phi_dev"), streamed["inertia"],
                                      streamed["coords"], dtype=torch.bfloat16)
     bf16 = bf16_serving("slice bf16", params16, batches, dmats, SLICE_KERNELS, ("dense", "bag"))
     del params16
+    log_accumulate("slice", launch_ms["bag"], bf16["launch_ms"]["bag"])
 
     t0 = time.perf_counter()
     metric_vec = twister.metrics_vector(Metric.of_string("powers(1,1,2)"))
@@ -1690,7 +1901,7 @@ def phase_cli() -> dict:
 
         sh(counts, "counts")
         launches["twist"] = run_default_cli(
-            "twist", ["-i", at("Classes.5"), "-o", at("Classes.5")], ("kpop_ca_gram",))
+            "twist", ["-i", at("Classes.5"), "-o", at("Classes.5")], GRAM_LAUNCHES)
         sh(serve, "classify and host references")
         launches["twistdb"] = run_default_cli(
             "twistdb", ["-i", "T", at("Classes.5"), "-i", "t", at("Classes.5"),
@@ -1989,13 +2200,15 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
         % (list(params.cuckoo.shape), params.cuckoo.nbytes / 1e6,
            params.cuckoo_probe.nbytes / 1e6, params.twister.nbytes / 1e6,
            time.perf_counter() - t0))
-    dmats, launches, accuracy, busy = serve_routes("large k", params, batches, LARGE_K_KERNELS)
+    dmats, launches, accuracy, busy, launch_ms = serve_routes("large k", params, batches,
+                                                              LARGE_K_KERNELS)
     log("large k: on %s" % card)
     del params
     torch.cuda.empty_cache()
     bf16 = bf16_serving("large k bf16", params16, batches, dmats,
                         ("kpop_embedding_bag_wide", "kpop_pairwise_dist"), ("bag",))
     del params16
+    log_accumulate("large k", launch_ms["bag"], bf16["launch_ms"]["bag"])
 
     t0 = time.perf_counter()
     metric_vec = twister64.metrics_vector(Metric.of_string("powers(1,1,2)"))
@@ -2058,12 +2271,19 @@ def main() -> int:
     launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"],
                 "large_k": lk["launches"], "train_streamed": sl["stream_launches"],
                 "slice_bf16": sl["bf16_launches"], "large_k_bf16": lk["bf16_launches"]}
+    def entry_launches(r) -> dict:
+        names = (r["launch"],) if isinstance(r["launch"], str) else r["launch"]
+        return {n: launches[r["path"]][n] for n in names}
+
     kernels = [
         dict(name=name, route="cuda", source=r["source"], replaces=r["replaces"],
-             launches=launches[r["path"]][r["launch"]], max_abs_err=r["err"],
+             launches=sum(entry_launches(r).values()), max_abs_err=r["err"],
              ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
              bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
-             path=r["path"], **{k: r[k] for k in ("err_f64", "plain_err_f64") if k in r})
+             path=r["path"],
+             **({"launches_by_entry": entry_launches(r)} if len(entry_launches(r)) > 1 else {}),
+             **{k: r[k] for k in ("device_ms", "err_f64", "plain_err_f64", "addmm_ms", "regime")
+                if k in r})
         for name, r in rows.items()
         if r["path"] is not None
     ]

@@ -50,16 +50,19 @@ _SIGNATURES = {
     "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P),
     "kpop_count_spectra_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _P, _P),
     # codes, B, L, k, canonical, base, lut, V, twister, its row type (0
-    # f32, 1 bf16), d, normalize, slices, int workspace, float workspace,
-    # out, stream
-    "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "kpop_embedding_bag_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _I, _I, _I, _I, _P, _P, _P,
-                                _P),
+    # f32, 1 bf16), d, its row stride, normalize, slices, int workspace,
+    # float workspace, out, stream
+    "kpop_embedding_bag": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P),
+    "kpop_embedding_bag_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                                _P, _P),
     # dmat, B, N, k, stats, top, idx (int64), stream
     "kpop_row_digest": (_P, _I, _I, _I, _P, _P, _P, _P),
-    # x, wire, K, ns, alpha, u, beta, v, slices, rows per slice, out,
-    # workspace, accumulate, stream
+    # x, wire, K, ns, alpha, u, beta, v, slices, rows per slice, partials,
+    # factors workspace, first block, stream
     "kpop_ca_gram": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P),
+    # partials, slices, ns, beta, out, stream
+    "kpop_ca_gram_finish": (_P, _I, _I, _P, _P, _P),
 }
 
 #: launches of each kernel since the last reset (set the values to 0)

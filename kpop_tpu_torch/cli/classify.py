@@ -9,9 +9,9 @@ the host in float64 over each full distance row
 one ``KPOP_PLATFORM`` names (:func:`kpop_tpu_torch.config.device`).
 Minkowski distances take the exact host path, as in the JAX tool.
 ``--dtype bf16`` stores the twister in bf16 on the device (every sum stays
-f32).
-
-Not ported yet (it raises): ``--kmer-parallel`` above 1.
+f32).  ``--kmer-parallel`` shards the twister over devices in the JAX tool
+only when it sees several; the port serves on one device, so, as the JAX
+tool does there, it serves as without the option.
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ from .. import __version__
 from ..config import device
 from ..ops.encode import encode_reads_host
 from ..ops.pipeline import (
-    ROADMAP_NOTE,
     ClassifierParams,
     build_classifier_params,
     count_spectra,
@@ -257,8 +256,8 @@ def main(argv=None) -> int:
            "memory and traffic of the one large tensor; all sums stay f32)"],
           set_dtype, "f32")
     p.opt(["--kmer-parallel"], "<non_negative_integer>",
-          ["shard the twister rows over this many devices (only 0 or 1,",
-           "one device, in the PyTorch port so far)"],
+          ["shard the twister rows over this many devices (no effect on",
+           "one device, where the PyTorch port serves)"],
           lambda a: state.update(kmer_parallel=a.get_int_non_neg()), "0")
     p.opt(["--project-path"], "'auto'|'dense'|'bag'",
           ["how reads become twisted coordinates: 'dense' counts the",
@@ -280,8 +279,9 @@ def main(argv=None) -> int:
 
     if not (state["twister"] and state["targets"] and state["inputs"]):
         raise ParseError("Options '-T', '-t' and an input are mandatory")
-    if state["kmer_parallel"] > 1:
-        raise ParseError(f"Option '--kmer-parallel' above 1 is {ROADMAP_NOTE}")
+    if state["kmer_parallel"] > 1 and state["verbose"]:
+        sys.stderr.write("(KPopClassify): --kmer-parallel %d has no effect on one device\n"
+                         % state["kmer_parallel"])
 
     twister = Twister.of_binary(state["twister"])
     targets = KPopMatrix.of_binary(MatrixType.TWISTED, state["targets"])

@@ -54,26 +54,34 @@
 // c + 1 are in flight into registers while the tensor cores multiply chunk
 // c, then chunk c + 1 is rebuilt into the other buffer, one barrier per
 // chunk.  Columns past ns and rows past the slice are rebuilt as 0, so
-// nothing is padded.  The tile is scaled by beta[i] beta[j], written to its
-// place and, off the diagonal, mirrored to (J, I).
+// nothing is padded.  The tile's sums, unscaled, go to the block's partial
+// (below).
 //
 // Split-K.  The grid is the nb (nb + 1) / 2 upper tiles (nb = ceil(ns / 64))
 // on x and S slices of the k-mer axis on y (kpop_tpu_torch/ops/gram.py::
-// split_plan: about three whole waves of two blocks an SM); slice s covers rows
-// [s R, min(K, (s + 1) R)) for R rows per slice.  Blocks of one slice run
-// together and share its rows in L2.  With S = 1 the tiles go straight to
-// G; with S > 1 each slice writes its own [ns, ns] in an f64 workspace and
-// slice_sum_kernel adds the slices in the order s = 0, 1, ..., S - 1:
-// bit-reproducible, no float atomics.
+// split_plan: about three whole waves of two blocks an SM); slice s covers
+// rows [s R, min(K, (s + 1) R)) for R rows per slice.  Blocks of one slice
+// run together and share its rows in L2.  Block (tile, slice) owns its
+// upper tile of slice s's partial [ns, ns] in an f64 workspace: it writes
+// its sums there, or adds them in place, unscaled, and stores nothing
+// else (no mirror).  gram_finish_kernel then adds the
+// slices in the order s = 0, 1, ..., S - 1, scales by beta[i] beta[j] and
+// writes G and its mirror: bit-reproducible, no float atomics.
 //
-// Accumulate.  The streamed CA fit (kpop_tpu_torch/parallel/sharded.py,
-// the counterpart of _ca_fit_streamed with _gram_compact_carry_fn_cached
-// and _gram_limbs_carry_fn_cached, whose double-double (acc, comp) carry
-// chains the blocks) calls the kernel once a row block of the table with
-// accumulate set: the tiles always go to the workspace, and
-// slice_sum_kernel adds the block's sum of slices into G, G + (s_0 + s_1
-// + ...), so the blocks' Grams add in block order in float64 with no
-// carry, the same from run to run.
+// Streamed fits.  The streamed CA fit (kpop_tpu_torch/parallel/sharded.py,
+// the counterpart of _ca_fit_streamed with _gram_compact_carry_fn_cached and
+// _gram_limbs_carry_fn_cached, whose double-double (acc, comp) carry chains
+// the blocks) keeps one set of partials for the whole Gram pass
+// (ops/gram.py::GramAccumulator): S is fixed by the pass's full block, each
+// row block of the table is one kpop_ca_gram launch whose (tile, slice)
+// blocks add into their partials in place (the first block writes them),
+// and one kpop_ca_gram_finish writes G after the last block.  Each entry of
+// G is so the sum, slice by slice, of the blocks in order: the same from
+// run to run, with no carry, and no per-block slice sum or mirrored store.
+//
+// Conversion.  A u8 or u16 count becomes a double by its bits, 2^52 + x,
+// less 2^52: one float64 add, exact, where a conversion instruction runs at
+// a quarter of the float64 add's rate on the H100.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,6 +119,17 @@ struct Seg {
     }
 };
 
+// a table value as a double, exactly: integers below 2^16 by their bits
+// (2^52 + x, less 2^52), the others by conversion
+__device__ __forceinline__ double as_double(uint8_t x) {
+    return __hiloint2double(0x43300000, x) - 4503599627370496.0;
+}
+__device__ __forceinline__ double as_double(uint16_t x) {
+    return __hiloint2double(0x43300000, x) - 4503599627370496.0;
+}
+__device__ __forceinline__ double as_double(float x) { return (double)x; }
+__device__ __forceinline__ double as_double(double x) { return x; }
+
 // one row's segment of a column panel: 16-byte loads when VEC (ns % 16 ==
 // 0, x on 16 bytes), else one masked load a value
 template <typename T, bool VEC>
@@ -131,8 +150,8 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 gram_tile_kernel(const T* __restrict__ x, int K, int ns,
                  const double* __restrict__ alpha, const double* __restrict__ rho,
-                 const double* __restrict__ beta, const double* __restrict__ gamma,
-                 int rows_per_slice, double* __restrict__ out) {
+                 const double* __restrict__ gamma, int rows_per_slice,
+                 double* __restrict__ partial, int first) {
     extern __shared__ double sS[];  // [buffer][panel][column][LDK]
 
     // upper tile (bi, bj), bi <= bj, from the linear index: row bi holds
@@ -180,13 +199,13 @@ gram_tile_kernel(const T* __restrict__ x, int K, int ns,
         if (diag) {
 #pragma unroll
             for (int j = 0; j < SEG; ++j)
-                pI[(c0 + j) * LDK + r] = a * fma(p, gI[j], (double)nI[j]);
+                pI[(c0 + j) * LDK + r] = a * fma(p, gI[j], as_double(nI[j]));
         } else {
             const double a2 = a * a;
 #pragma unroll
             for (int j = 0; j < SEG; ++j) {
-                pI[(c0 + j) * LDK + r] = a2 * fma(p, gI[j], (double)nI[j]);
-                pJ[(c0 + j) * LDK + r] = fma(p, gJ[j], (double)nJ[j]);
+                pI[(c0 + j) * LDK + r] = a2 * fma(p, gI[j], as_double(nI[j]));
+                pJ[(c0 + j) * LDK + r] = fma(p, gJ[j], as_double(nJ[j]));
             }
         }
     };
@@ -247,24 +266,53 @@ gram_tile_kernel(const T* __restrict__ x, int K, int ns,
         __syncthreads();
     }
 
-    double* G = out + (size_t)blockIdx.y * ns * ns;
+    // the block's upper tile into its slice's partial, in place (written by
+    // the first block): a warp's store covers 8 rows of 8 consecutive
+    // columns a fragment tile
+    double* P = partial + (size_t)blockIdx.y * ns * ns;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int i = I0 + wm + mi * 16 + g + (e >> 1) * 8;
             if (i >= ns) continue;
-            const double b_i = beta[i];
 #pragma unroll
             for (int ni = 0; ni < 4; ++ni) {
                 const int j = J0 + wn + ni * 8 + 2 * q + (e & 1);
                 if (j < ns) {
-                    const double val = acc[mi][ni][e] * (b_i * beta[j]);
-                    G[(size_t)i * ns + j] = val;
-                    if (!diag) G[(size_t)j * ns + i] = val;
+                    double* p = P + (size_t)i * ns + j;
+                    *p = first ? acc[mi][ni][e] : *p + acc[mi][ni][e];
                 }
             }
         }
+}
+
+// Block (t, y): entries y FINISH_THREADS .. (y + 1) FINISH_THREADS - 1 of
+// upper tile t of G, a thread each, from every slice's partial, added in
+// order, scaled by beta[i] beta[j], written to their place and, off the
+// diagonal, mirrored.
+constexpr int FINISH_THREADS = 256;
+
+__global__ void __launch_bounds__(FINISH_THREADS)
+gram_finish_kernel(const double* __restrict__ partial, int slices, int ns,
+                   const double* __restrict__ beta, double* __restrict__ out) {
+    const int nb = (ns + TILE - 1) / TILE;
+    int t = blockIdx.x, bi = 0;
+    while (t >= nb - bi) {
+        t -= nb - bi;
+        ++bi;
+    }
+    const int bj = bi + t;
+    const size_t n = (size_t)ns * ns;
+    const int r = blockIdx.y * FINISH_THREADS + threadIdx.x;
+    const int i = bi * TILE + r / TILE, j = bj * TILE + r % TILE;
+    if (i >= ns || j >= ns) return;
+    const size_t at = (size_t)i * ns + j;
+    double sum = partial[at];
+    for (int s = 1; s < slices; ++s) sum += partial[(size_t)s * n + at];
+    const double val = sum * (beta[i] * beta[j]);
+    out[at] = val;
+    if (bi != bj) out[(size_t)j * ns + i] = val;
 }
 
 // rho = u / alpha and gamma = v / beta: 0 where the divisor and the
@@ -283,66 +331,61 @@ __global__ void factors_kernel(const double* __restrict__ alpha, const double* _
     }
 }
 
-// out = the sum of the slices in order, or with accumulate out + that sum
-__global__ void slice_sum_kernel(const double* __restrict__ ws, int slices,
-                                 size_t n, int accumulate, double* __restrict__ out) {
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += (size_t)gridDim.x * blockDim.x) {
-        double s = 0.0;
-        for (int j = 0; j < slices; ++j) s += ws[(size_t)j * n + i];
-        out[i] = accumulate ? out[i] + s : s;
-    }
-}
-
 template <typename T>
 cudaError_t launch_tiles(const void* x, int K, int ns, const double* alpha,
-                         const double* rho, const double* beta, const double* gamma,
-                         int slices, int rows_per_slice, double* dst,
-                         cudaStream_t stream) {
+                         const double* rho, const double* gamma, int slices,
+                         int rows_per_slice, double* partial, int first, cudaStream_t stream) {
     const bool vec = ns % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     auto kernel = vec ? gram_tile_kernel<T, true> : gram_tile_kernel<T, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     const int nb = (ns + TILE - 1) / TILE;
     const dim3 grid(nb * (nb + 1) / 2, slices);
     kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-        static_cast<const T*>(x), K, ns, alpha, rho, beta, gamma, rows_per_slice, dst);
+        static_cast<const T*>(x), K, ns, alpha, rho, gamma, rows_per_slice, partial, first);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// wire: 0 u8, 1 u16, 2 f32, 3 f64.  workspace: K + ns f64 for rho and
-// gamma, then [slices, ns, ns] f64 when slices > 1 or accumulate.
-// accumulate: out += G (out holds a Gram already), else out = G.
+// One row block of the table into the partials: wire 0 u8, 1 u16, 2 f32,
+// 3 f64; partial [slices, ns, ns] f64, whose upper tiles are written when
+// first is set, else added into; factors K + ns f64 for rho and gamma.
 extern "C" int kpop_ca_gram(const void* x, int wire, int K, int ns,
                             const double* alpha, const double* u,
                             const double* beta, const double* v, int slices,
-                            int rows_per_slice, double* out, double* workspace,
-                            int accumulate, void* stream) {
-    if (K <= 0 || ns <= 0 || slices <= 0 || rows_per_slice <= 0)
+                            int rows_per_slice, double* partial, double* factors,
+                            int first, void* stream) {
+    if (K <= 0 || ns <= 0 || slices <= 0 || slices > 65535 || rows_per_slice <= 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    double* rho = workspace;
+    double* rho = factors;
     double* gamma = rho + K;
     const int fblocks = (K + ns + 255) / 256 < 1024 ? (K + ns + 255) / 256 : 1024;
     factors_kernel<<<fblocks, 256, 0, st>>>(alpha, u, K, beta, v, ns, rho, gamma);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    double* partial = gamma + ns;
-    const bool staged = slices > 1 || accumulate;
-    double* dst = staged ? partial : out;
     switch (wire) {
-        case 0: err = launch_tiles<uint8_t>(x, K, ns, alpha, rho, beta, gamma, slices, rows_per_slice, dst, st); break;
-        case 1: err = launch_tiles<uint16_t>(x, K, ns, alpha, rho, beta, gamma, slices, rows_per_slice, dst, st); break;
-        case 2: err = launch_tiles<float>(x, K, ns, alpha, rho, beta, gamma, slices, rows_per_slice, dst, st); break;
-        case 3: err = launch_tiles<double>(x, K, ns, alpha, rho, beta, gamma, slices, rows_per_slice, dst, st); break;
+        case 0: err = launch_tiles<uint8_t>(x, K, ns, alpha, rho, gamma, slices, rows_per_slice, partial, first, st); break;
+        case 1: err = launch_tiles<uint16_t>(x, K, ns, alpha, rho, gamma, slices, rows_per_slice, partial, first, st); break;
+        case 2: err = launch_tiles<float>(x, K, ns, alpha, rho, gamma, slices, rows_per_slice, partial, first, st); break;
+        case 3: err = launch_tiles<double>(x, K, ns, alpha, rho, gamma, slices, rows_per_slice, partial, first, st); break;
         default: return (int)cudaErrorInvalidValue;
     }
-    if (err != cudaSuccess || !staged) return (int)err;
-    const size_t n = (size_t)ns * ns;
-    const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-    slice_sum_kernel<<<blocks, 256, 0, st>>>(partial, slices, n, accumulate, out);
+    return (int)err;
+}
+
+// G [ns, ns] from the partials of `slices` slices, in slice order
+extern "C" int kpop_ca_gram_finish(const double* partial, int slices, int ns,
+                                   const double* beta, double* out, void* stream) {
+    if (ns <= 0 || slices <= 0) return (int)cudaErrorInvalidValue;
+    const int nb = (ns + TILE - 1) / TILE;
+    const dim3 grid(nb * (nb + 1) / 2, TILE * TILE / FINISH_THREADS);
+    gram_finish_kernel<<<grid, FINISH_THREADS, 0, (cudaStream_t)stream>>>(partial, slices, ns,
+                                                                         beta, out);
     return (int)cudaGetLastError();
 }

@@ -63,10 +63,10 @@
 //    tile's header, entries and hit rows' column slices into a ring in
 //    shared memory, so each hit row is read once, and a tile takes only the
 //    bytes it needs (the densest, 16k entries and 128 rows, fits alone).
-//    Warp w keeps the sums of read sets 4 w .. 4 w + 3 in registers, lane
-//    l columns l + 32 k, and adds count x row[c] (one f32 product, one f32
-//    add) for each read set's entries in entry order.  A (read set,
-//    column) has one owner, so there are no atomics on floats.
+//    Warp w keeps the sums of read sets 4 w .. 4 w + 3 in registers, each
+//    lane those of 4 columns (lane_col), and adds count x row[c] (one f32
+//    product, one f32 add) for each read set's entries in entry order.  A
+//    (read set, column) has one owner, so there are no atomics on floats.
 //    Gather (bag_gather), where tiles are sparse (random reads at k = 16:
 //    853,022 entries on 852,380 hit rows in 7,906 tiles).  Staging
 //    then buys no reuse, and the staged ring's time went to its serial
@@ -92,14 +92,23 @@
 //
 // bf16 twisters (row type 1; kpop-classify --dtype bf16, the JAX
 // package's project_reads on a bf16 twister, whose scan widens each
-// gathered row to f32 and sums in f32).  The rows are read at 2 bytes an
-// element, which halves the bytes that bound the gather regime; each
-// element is widened to f32 exactly (its 16 bits as the high half) and
-// then goes through the same f32 products and sums, in the same order, as
-// an f32 row's, so both regimes still give the same bits.  A bf16 row
-// starts on 2 bytes, so the staged ring's 16-byte windows align down by 8
-// elements where f32's align by 4: a 128-column slice is 256 bytes plus up
-// to 14 of offset, 17 chunks (Row<Tw>), where f32 needs 33.
+// gathered row to f32 and sums in f32).  Row v starts at element v ld
+// (ld, the row stride, >= d).  A bf16 twister's ld must be a multiple of 8
+// (ops/pipeline.py::bf16_rows: 512 at d = 511), so every row starts on 16
+// bytes: in both regimes a lane owns the 4 consecutive columns 4 l .. 4 l
+// + 3 of a 128-column block (lane_col) and reads them as one 8-byte word,
+// where 2-byte reads of 4 columns 32 apart took four load instructions and
+// left the gather bound by them and the staged sums by instruction issue.
+// Each element is widened to f32 exactly (its 16 bits as the high half)
+// and then goes through the same f32 products and sums, in the same order,
+// as an f32 row's, so both regimes still give the same bits, and the same
+// as an f32 twister of the widened values.  f32 rows keep their 4 columns
+// 32 apart a lane.  Rows off 8-byte words are refused: reading them as two
+// words and funnel-shifting the pair measured slower on real reads
+// (PERF.md §6).  The staged ring's 16-byte windows align down by
+// PER_CHUNK elements (Row<Tw>), so an f32 row's start at any 4 bytes takes
+// 33 chunks a 128-column slice; a bf16 slice is 256 bytes at no offset,
+// in 17 chunks, one to spare.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,7 +116,7 @@
 
 namespace {
 
-constexpr int COLS = 128;                // columns per accumulate block: lane + 32 k
+constexpr int COLS = 128;                // columns per accumulate block: 4 a lane
 constexpr int THREADS = 1024;            // warp w: read sets [4 w, 4 w + 4)
 constexpr int GROUP = 128;               // read sets per pass (8 bits of a key)
 constexpr int R = 128;                   // rows of a vocabulary tile: 4 words of hit mask
@@ -143,15 +152,32 @@ struct Row {
 };
 static_assert(COLS % Row<uint16_t>::PER_CHUNK == 0, "a column block starts on a chunk");
 
-// an element widened to f32, exactly
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(uint16_t bits) { return __uint_as_float((unsigned)bits << 16); }
+// whether a lane reads its 4 columns of a row as one 8-byte word: bf16
+// rows, which start on 16 bytes
+template <typename Tw>
+constexpr bool WORD_READS = sizeof(Tw) == 2;
+
+// column k = 0..3 of a lane within its COLS-column block: the lanes
+// interleaved (l + 32 k, f32 rows), or 4 consecutive columns a lane (4 l +
+// k, one 8-byte word of a bf16 row)
+template <typename Tw>
+__device__ __forceinline__ int lane_col(int lane, int k) {
+    return WORD_READS<Tw> ? 4 * lane + k : lane + 32 * k;
+}
+
+// 4 bf16, 2 to a word, widened to f32 exactly
+__device__ __forceinline__ void widen4(unsigned lo, unsigned hi, float (&x)[4]) {
+    x[0] = __uint_as_float(lo << 16);
+    x[1] = __uint_as_float(lo & 0xffff0000u);
+    x[2] = __uint_as_float(hi << 16);
+    x[3] = __uint_as_float(hi & 0xffff0000u);
+}
 
 // the offset of twister[v, col0] in its 16-byte aligned window (col0 is a
 // multiple of PER_CHUNK)
 template <typename Tw>
-__device__ __forceinline__ int row_shift(int v, int d, int col0) {
-    return (int)(((unsigned)v * (unsigned)d + (unsigned)col0) & (unsigned)(Row<Tw>::PER_CHUNK - 1));
+__device__ __forceinline__ int row_shift(int v, int ld, int col0) {
+    return (int)(((unsigned)v * (unsigned)ld + (unsigned)col0) & (unsigned)(Row<Tw>::PER_CHUNK - 1));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -346,7 +372,7 @@ __device__ __forceinline__ unsigned count_of(const unsigned* cnt, int c) {
 template <bool NARROW, typename Tw>
 __global__ void __launch_bounds__(COMPACT_THREADS)
 bag_compact(const int* __restrict__ keys, const int* __restrict__ nz,
-            const int* __restrict__ kbase, const int* __restrict__ n_nz, int B, int d,
+            const int* __restrict__ kbase, const int* __restrict__ n_nz, int B, int ld,
             int2* __restrict__ ent, int4* __restrict__ meta, int4* __restrict__ hit,
             int* __restrict__ hdr, int* __restrict__ entries) {
     extern __shared__ unsigned cnt[];  // [B, R] counts
@@ -420,7 +446,7 @@ bag_compact(const int* __restrict__ keys, const int* __restrict__ nz,
                     const int r = 32 * q + lane;
                     const int slot = slot0[q] + __popc(hits[q] & below);
                     ent[pos + __popc(m & below)] =
-                        make_int2(r << 16 | (slot * Row<Tw>::STRIDE + row_shift<Tw>(t * R + r, d, 0)),
+                        make_int2(r << 16 | (slot * Row<Tw>::STRIDE + row_shift<Tw>(t * R + r, ld, 0)),
                                   __float_as_int((float)count_of<NARROW>(cnt, b * R + r)));
                 }
                 pos += __popc(m);
@@ -543,7 +569,7 @@ __device__ __forceinline__ int nth_bit(unsigned w, int k) {
 template <typename Tw>
 __device__ __forceinline__ void fill(unsigned char* st, int j, int4 m, int4 h,
                                      const int2* __restrict__ ent, const int* __restrict__ hdr,
-                                     const Tw* __restrict__ twister, size_t size, int d,
+                                     const Tw* __restrict__ twister, size_t size, int ld,
                                      int col0) {
     constexpr int PER = Row<Tw>::PER_CHUNK, CHUNKS = Row<Tw>::CHUNKS;
     const int n_ent = staged_entries(m.y, m.z);
@@ -553,7 +579,7 @@ __device__ __forceinline__ void fill(unsigned char* st, int j, int4 m, int4 h,
     const int n1 = HDR_CHUNKS + n_ent / 2;
     const int p1 = __popc(h.x), p2 = p1 + __popc(h.y), p3 = p2 + __popc(h.z);
     const int n2 = n1 + (p3 + __popc(h.w)) * CHUNKS;
-    const size_t first = (size_t)m.x * R * d + col0;  // twister[t R, col0]
+    const size_t first = (size_t)m.x * R * ld + col0;  // twister[t R, col0]
     for (int i = threadIdx.x; i < n2; i += THREADS) {
         if (i < HDR_CHUNKS) {
             cp_async16(st + 16 * i, hdr + (size_t)j * HDR_INTS + 4 * i, 16);
@@ -564,7 +590,7 @@ __device__ __forceinline__ void fill(unsigned char* st, int j, int4 m, int4 h,
             const int word = slot < p1 ? 0 : slot < p2 ? 1 : slot < p3 ? 2 : 3;
             const int r = 32 * word + nth_bit(word == 0 ? h.x : word == 1 ? h.y : word == 2 ? h.z : h.w,
                                               slot - (word == 0 ? 0 : word == 1 ? p1 : word == 2 ? p2 : p3));
-            const size_t src = ((first + (size_t)r * d) & ~(size_t)(PER - 1)) + PER * q;
+            const size_t src = ((first + (size_t)r * ld) & ~(size_t)(PER - 1)) + PER * q;
             const int bytes =
                 src + PER <= size ? 16 : src < size ? (int)((size - src) * sizeof(Tw)) : 0;
             cp_async16(rows + slot * Row<Tw>::STRIDE + PER * q, twister + (bytes ? src : 0), bytes);
@@ -572,15 +598,21 @@ __device__ __forceinline__ void fill(unsigned char* st, int j, int4 m, int4 h,
     }
 }
 
-// the lane's 4 columns of the staged row of entry a, widened, times the
-// count
+// the lane's 4 columns of the staged row of entry a (lane_col), widened,
+// times the count: a bf16 row's as one 8-byte word (its staged window
+// starts at the row), an f32 row's 32 apart
 template <typename Tw>
 __device__ __forceinline__ void add_entry(float (&acc)[4], const Tw* rows, int2 a, int lane) {
     const float cf = __int_as_float(a.y);
-    const Tw* x = rows + (a.x & 0xffff) + lane;
     float v[4];
+    if constexpr (WORD_READS<Tw>) {
+        const uint2 w = reinterpret_cast<const uint2*>(rows + (a.x & 0xffff))[lane];
+        widen4(w.x, w.y, v);
+    } else {
+        const Tw* x = rows + (a.x & 0xffff) + lane;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = widen(x[32 * k]);
+        for (int k = 0; k < 4; ++k) v[k] = x[32 * k];
+    }
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(cf, v[k]));
 }
@@ -619,15 +651,15 @@ __device__ __forceinline__ bool gather_regime(const int* __restrict__ entries,
 // to SLOTS in flight), each thread arriving on the tile's barrier when its
 // copies have landed; a tile takes what it needs, so a dense tile's
 // entries and a sparse tile's few rows cost only their bytes.  Warp w
-// keeps the sums of read sets 4 w .. 4 w + 3 over columns COLS y + lane +
-// 32 k in registers.
+// keeps the sums of read sets 4 w .. 4 w + 3 over the lane's columns of
+// block y (lane_col) in registers.
 template <typename Tw>
 __global__ void __launch_bounds__(THREADS, 1)
 bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
                const int* __restrict__ hdr, const int* __restrict__ kbase,
                const int* __restrict__ n_nz, const int2* __restrict__ ent,
                const int* __restrict__ entries, const Tw* __restrict__ twister, int V, int d,
-               int B, float* __restrict__ ws) {
+               int ld, int B, float* __restrict__ ws) {
     if (gather_regime(entries, n_nz)) return;
     extern __shared__ __align__(16) unsigned char smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -637,7 +669,7 @@ bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
     const int S = gridDim.y, s = blockIdx.y;
     const int n = *n_nz;
     const int j0 = slice_start(kbase, n, S, s), j1 = slice_start(kbase, n, S, s + 1);
-    const size_t size = (size_t)V * d;
+    const size_t size = (size_t)(V - 1) * ld + d;  // the twister's elements, to its last
     if (threadIdx.x < SLOTS) mbar_init(full + threadIdx.x, THREADS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     __syncthreads();
@@ -663,7 +695,7 @@ bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
             const int pad = wrap ? RING_BYTES - head : 0;
             if (used + pad + z > RING_BYTES) break;
             const int at = wrap ? 0 : head, slot = (jf - j0) % SLOTS;
-            fill(ring + at, jf, mf, hf, ent, hdr, twister, size, d, col0);
+            fill(ring + at, jf, mf, hf, ent, hdr, twister, size, ld, col0);
             cp_async_arrive(full + slot);
             start[slot] = at;
             span[slot] = pad + z;
@@ -692,9 +724,48 @@ bag_accumulate(const int4* __restrict__ meta, const int4* __restrict__ hit,
         const int b = 4 * w + bi;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-            const int g = col0 + lane + 32 * k;
+            const int g = col0 + lane_col<Tw>(lane, k);
             if (b < B && g < d) ws[((size_t)s * B + b) * d + g] = acc[bi][k];
         }
+    }
+}
+
+// 4 bf16 from the 8-byte word at element w (a multiple of 4), 0 past the
+// twister's `size` elements
+__device__ __forceinline__ uint2 bf16_word(const uint16_t* __restrict__ twister, size_t w,
+                                           size_t size) {
+    if (w + 4 <= size) return __ldg(reinterpret_cast<const uint2*>(twister + w));
+    unsigned h[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = w + k < size ? __ldg(twister + w + k) : 0u;
+    return make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+}
+
+// The gather's read of the bf16 row slices that start at twister[at[u]]
+// (at = v ld + col0, a multiple of 8) for the N entries in flight,
+// widened, into the lane's 4 consecutive columns: its 8-byte word at at +
+// 4 l, 0 where there is no entry (ok[u], the warp's) or past the row.
+// Every load is issued before any is used.
+template <int N>
+__device__ __forceinline__ void read_rows(float (&x)[N][4], const uint16_t* __restrict__ twister,
+                                          size_t size, const size_t (&at)[N],
+                                          const bool (&ok)[N], const bool (&in_row)[4],
+                                          int lane) {
+    uint2 w[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+        const size_t at_l = at[u] + 4 * (size_t)lane;
+        w[u] = !ok[u] ? make_uint2(0, 0)
+               : at[u] + 4 * 32 <= size  // the warp's words lie inside
+                   ? __ldg(reinterpret_cast<const uint2*>(twister + at_l))
+                   : bf16_word(twister, at_l, size);
+    }
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+        float v[4];
+        widen4(w[u].x, w[u].y, v);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) x[u][k] = ok[u] && in_row[k] ? v[k] : 0.0f;
     }
 }
 
@@ -705,7 +776,7 @@ constexpr int GATHER_AHEAD = 2;
 static_assert(GATHER_TILES * 4 == 32, "a lane a (tile, read set) of the warp");
 
 // The gather regime: the grid, the slices and the owners of bag_accumulate
-// (warp w: read sets 4 w .. 4 w + 3 over columns COLS y + lane + 32 k), no
+// (warp w: read sets 4 w .. 4 w + 3 over the lane's columns of block y), no
 // shared memory and no barrier.  Each warp walks its slice's tiles
 // GATHER_TILES at a time: lane 4 g + q reads the entry range of read set
 // 4 w + q in tile g, the warp fetches the 32 next entries of those ranges
@@ -718,16 +789,18 @@ __global__ void __launch_bounds__(THREADS, 1)
 bag_gather(const int4* __restrict__ meta, const int* __restrict__ hdr,
            const int* __restrict__ kbase, const int* __restrict__ n_nz,
            const int2* __restrict__ ent, const int* __restrict__ entries,
-           const Tw* __restrict__ twister, int d, int B, float* __restrict__ ws) {
+           const Tw* __restrict__ twister, int V, int d, int ld, int B,
+           float* __restrict__ ws) {
     if (!gather_regime(entries, n_nz)) return;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     const int col0 = blockIdx.x * COLS;
     const int S = gridDim.y, s = blockIdx.y;
     const int n = *n_nz;
     const int j0 = slice_start(kbase, n, S, s), j1 = slice_start(kbase, n, S, s + 1);
+    const size_t size = (size_t)(V - 1) * ld + d;  // the twister's elements, to its last
     bool in_row[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) in_row[k] = col0 + lane + 32 * k < d;
+    for (int k = 0; k < 4; ++k) in_row[k] = col0 + lane_col<Tw>(lane, k) < d;
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -776,13 +849,24 @@ bag_gather(const int4* __restrict__ meta, const int* __restrict__ hdr,
                         mine &= mine - 1;
                     }
                     float x[GATHER_AHEAD][4];
+                    if constexpr (WORD_READS<Tw>) {
+                        size_t at[GATHER_AHEAD];
+                        bool ok[GATHER_AHEAD];
 #pragma unroll
-                    for (int u = 0; u < GATHER_AHEAD; ++u) {
-                        const Tw* src =
-                            twister + (size_t)__shfl_sync(FULL, v, us[u] & 31) * d + col0 + lane;
+                        for (int u = 0; u < GATHER_AHEAD; ++u) {
+                            at[u] = (size_t)__shfl_sync(FULL, v, us[u] & 31) * ld + col0;
+                            ok[u] = us[u] >= 0;
+                        }
+                        read_rows(x, twister, size, at, ok, in_row, lane);
+                    } else {
 #pragma unroll
-                        for (int k = 0; k < 4; ++k)
-                            x[u][k] = us[u] >= 0 && in_row[k] ? widen(__ldg(src + 32 * k)) : 0.0f;
+                        for (int u = 0; u < GATHER_AHEAD; ++u) {
+                            const Tw* src = twister + (size_t)__shfl_sync(FULL, v, us[u] & 31) * ld +
+                                            col0 + lane;
+#pragma unroll
+                            for (int k = 0; k < 4; ++k)
+                                x[u][k] = us[u] >= 0 && in_row[k] ? __ldg(src + 32 * k) : 0.0f;
+                        }
                     }
 #pragma unroll
                     for (int u = 0; u < GATHER_AHEAD; ++u) {
@@ -801,7 +885,7 @@ bag_gather(const int4* __restrict__ meta, const int* __restrict__ hdr,
         const int b = 4 * w + bi;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-            const int g = col0 + lane + 32 * k;
+            const int g = col0 + lane_col<Tw>(lane, k);
             if (b < B && g < d) ws[((size_t)s * B + b) * d + g] = acc[bi][k];
         }
     }
@@ -832,13 +916,14 @@ __global__ void bag_slice_sum(const float* __restrict__ ws, int S, int B, int d,
 // cursors CNT T, the entries 2 N + 2 (the windows' rows first), keys N, nz
 // T, kbase T + 1, the tile totals T, n_known GROUP, n_nz 1 and the pass's
 // entries 1 int; fwork S min(B, GROUP) d floats.  The twister must start
-// on 16 bytes.
+// on 16 bytes; its row v starts at element v ld (ld >= d, a multiple of 8
+// for bf16 rows).
 template <class Find, typename Tw>
 int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int base,
-                  const Find& find, int V, const Tw* twister, int d, int normalize, int S,
-                  int* iwork, float* fwork, float* out, void* stream) {
+                  const Find& find, int V, const Tw* twister, int d, int ld, int normalize,
+                  int S, int* iwork, float* fwork, float* out, void* stream) {
     if (B <= 0 || d <= 0) return (int)cudaGetLastError();
-    if (L < k || V <= 0 || S <= 0 || S > 65535 ||
+    if (L < k || V <= 0 || S <= 0 || S > 65535 || ld < d || (WORD_READS<Tw> && ld % 8) ||
         reinterpret_cast<uintptr_t>(twister) % 16 || reinterpret_cast<uintptr_t>(iwork) % 16)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
@@ -894,11 +979,12 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
         bag_cursors<<<tile_blocks, 256, 0, st>>>(bkt, T, tot);
         bag_scatter<<<bgrid, HIST_THREADS, 0, st>>>(vt, W, V, bkt, keys);
         compact<<<compact_blocks, COMPACT_THREADS, compact_smem, st>>>(
-            keys, nz, kbase, n_nz, Bg, d, ent, meta, hit, hdr, entries);
+            keys, nz, kbase, n_nz, Bg, ld, ent, meta, hit, hdr, entries);
         bag_accumulate<Tw><<<acc_grid, THREADS, acc_smem, st>>>(meta, hit, hdr, kbase, n_nz, ent,
-                                                                entries, twister, V, d, Bg, fwork);
+                                                                entries, twister, V, d, ld, Bg,
+                                                                fwork);
         bag_gather<Tw><<<acc_grid, THREADS, 0, st>>>(meta, hdr, kbase, n_nz, ent, entries,
-                                                     twister, d, Bg, fwork);
+                                                     twister, V, d, ld, Bg, fwork);
         const size_t n = (size_t)Bg * d;
         const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
         bag_slice_sum<<<blocks, 256, 0, st>>>(fwork, S, Bg, d, n_known, normalize,
@@ -911,17 +997,17 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
 // the twister's row type: 0 f32, 1 bf16
 template <class Find>
 int embedding_bag_rows(const int8_t* codes, int B, int L, int k, int canonical, int base,
-                       const Find& find, int V, const void* twister, int row_type, int d,
+                       const Find& find, int V, const void* twister, int row_type, int d, int ld,
                        int normalize, int S, int* iwork, float* fwork, float* out,
                        void* stream) {
     switch (row_type) {
         case 0:
             return embedding_bag(codes, B, L, k, canonical, base, find, V,
-                                 static_cast<const float*>(twister), d, normalize, S, iwork,
+                                 static_cast<const float*>(twister), d, ld, normalize, S, iwork,
                                  fwork, out, stream);
         case 1:
             return embedding_bag(codes, B, L, k, canonical, base, find, V,
-                                 static_cast<const uint16_t*>(twister), d, normalize, S, iwork,
+                                 static_cast<const uint16_t*>(twister), d, ld, normalize, S, iwork,
                                  fwork, out, stream);
         default:
             return (int)cudaErrorInvalidValue;
@@ -933,11 +1019,11 @@ int embedding_bag_rows(const int8_t* codes, int B, int L, int k, int canonical, 
 // k up to lut_k_max: lut is the dense [base^k + 1] table
 extern "C" int kpop_embedding_bag(const int8_t* codes, int B, int L, int k,
                                   int canonical, int base, const int32_t* lut,
-                                  int V, const void* twister, int row_type, int d,
+                                  int V, const void* twister, int row_type, int d, int ld,
                                   int normalize, int S, int* iwork,
                                   float* fwork, float* out, void* stream) {
     return embedding_bag_rows(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V,
-                              twister, row_type, d, normalize, S, iwork, fwork, out, stream);
+                              twister, row_type, d, ld, normalize, S, iwork, fwork, out, stream);
 }
 
 // larger k: the cuckoo hash's probe layout (ops/cuckoo.py::probe_table) of
@@ -947,7 +1033,8 @@ extern "C" int kpop_embedding_bag_wide(const int8_t* codes, int B, int L, int k,
                                        int base, int k_lo, const int32_t* probe, int slots,
                                        uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
                                        const int32_t* limbs, int V,
-                                       const void* twister, int row_type, int d, int normalize,
+                                       const void* twister, int row_type, int d, int ld,
+                                       int normalize,
                                        int S, int* iwork, float* fwork, float* out,
                                        void* stream) {
     if (k > 32 || !probe == !limbs || (probe && (slots & (slots - 1))) ||
@@ -955,5 +1042,6 @@ extern "C" int kpop_embedding_bag_wide(const int8_t* codes, int B, int L, int k,
         return (int)cudaErrorInvalidValue;
     return embedding_bag_rows(codes, B, L, k, canonical, base,
                               kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V),
-                              V, twister, row_type, d, normalize, S, iwork, fwork, out, stream);
+                              V, twister, row_type, d, ld, normalize, S, iwork, fwork, out,
+                              stream);
 }

@@ -55,10 +55,11 @@ from .encode import (
 )
 from .pairwise import H100_SMS, _sm_count, distance_tile, row_norms
 
-ROADMAP_NOTE = "not ported to kpop_tpu_torch yet (ROADMAP.md, queue 1)"
-
 #: twister dtypes, with the bag kernel's code for each row type
 BAG_ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: elements to which the rows of a bf16 twister are aligned (16 bytes), so
+#: that the bag kernel reads each row by aligned 8-byte words
+BF16_ROW_ALIGN = 8
 
 #: twister columns per accumulate block of the embedding-bag kernel
 #: (csrc/embedding_bag.cu), 4 a lane
@@ -84,13 +85,18 @@ COUNT_RUN = 8
 COUNT_SLICE_BYTES = 96 * 1024
 #: most windows a read set for the count kernel's u16 counters
 COUNT_NARROW_MAX = 65535
+#: most read sets a count launch takes: its lookup's grid.y
+COUNT_MAX_ROWS = 65535
 _INT_MAX = 2**31 - 1
 
 
 class ClassifierParams(nn.Module):
     """Device-resident parameters of the count + twist + classify model.
 
-    Buffers: ``twister [V, d]`` f32 or bf16, ``metric [d]``,
+    Buffers: ``twister [V, d]`` f32, or bf16 in rows at a stride aligned to
+    16 bytes (a bf16 twister given in other rows is laid out so, by
+    :func:`bf16_rows`: the bag kernel reads its rows by aligned words),
+    ``metric [d]``,
     ``class_coords [C, d]``, ``class_norms [C]`` (f32) and the vocabulary.  Up to k =
     :func:`~.encode.lut_k_max` the vocabulary is ``vocab_lut [base^k + 1]``
     int32 (code -> twister row, V for a k-mer outside the vocabulary).
@@ -153,6 +159,8 @@ class ClassifierParams(nn.Module):
             elif not all(t is not None and t.dtype == torch.int32 and t.shape == (V,)
                          for t in (vocab_hi, vocab_lo)):
                 raise ValueError(f"k={k}: a cuckoo table or int32 [{V}] vocab_hi/vocab_lo")
+        if twister.dtype == torch.bfloat16 and not bf16_aligned(twister):
+            twister = bf16_rows(twister)
         self.register_buffer("vocab_lut", vocab_lut)
         self.register_buffer("twister", twister)
         self.register_buffer("metric", metric)
@@ -255,7 +263,10 @@ def _params(space, kmer_names, twister, inertia, class_coords, distance, metric,
         vocab = {name: torch.as_tensor(a, device=device) if isinstance(a, np.ndarray) else a
                  for name, a in vocab.items()}
         twister = twister.index_select(0, torch.as_tensor(order, device=twister.device))
-    twister = twister.to(dtype=dtype).to(device)
+    if dtype == torch.bfloat16:
+        twister = bf16_rows(twister, device)
+    else:
+        twister = twister.to(dtype=dtype).to(device)
     mvec = metric.compute(np.asarray(inertia, dtype=np.float64))
     cls_norms = normalizations(distance, mvec, class_coords)
 
@@ -273,6 +284,30 @@ def _params(space, kmer_names, twister, inertia, class_coords, distance, metric,
         distance_kind=distance.kind,
         **vocab,
     )
+
+
+def bf16_aligned(twister: torch.Tensor) -> bool:
+    """Whether every row of ``twister`` starts on 16 bytes, its columns
+    contiguous: the layout of :func:`bf16_rows`, which the bag kernel
+    needs of a bf16 twister."""
+    row_bytes = twister.stride(0) * twister.element_size()
+    return twister.stride(1) == 1 and row_bytes % 16 == 0 and twister.data_ptr() % 16 == 0
+
+
+def bf16_rows(twister: torch.Tensor, device: torch.device | str | None = None) -> torch.Tensor:
+    """``twister [V, d]`` (f32 or bf16) as a bf16 twister on ``device`` (the
+    twister's own by default) whose rows start every ``ld`` elements, d
+    rounded up to :data:`BF16_ROW_ALIGN`: a ``[V, d]`` view of a ``[V, ld]``
+    buffer, its padding 0.  The cast is made where the twister lies, into
+    the padded rows, so only the bf16 twister crosses to ``device``.  Every
+    row starts on 16 bytes, so the bag kernel reads it by aligned words;
+    the dense route's product takes the row stride as it is."""
+    V, d = twister.shape
+    ld = -(-d // BF16_ROW_ALIGN) * BF16_ROW_ALIGN
+    buf = torch.empty((V, ld), dtype=torch.bfloat16, device=twister.device)
+    buf[:, d:].zero_()
+    buf[:, :d].copy_(twister)
+    return buf.to(twister.device if device is None else device)[:, :d]
 
 
 def wide_vocab(space: KmerSpace, kmer_codes: np.ndarray) -> tuple[dict, np.ndarray]:
@@ -323,8 +358,8 @@ def params_from_jax(
         if a is None:
             return None
         a = np.ascontiguousarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.tensor(a.view(np.uint16), device=device).view(torch.bfloat16)
+        if a.dtype.name == "bfloat16":  # its 16 bits, into aligned rows
+            return bf16_rows(torch.tensor(a.view(np.uint16)).view(torch.bfloat16), device)
         return torch.tensor(a, device=device)
 
     return ClassifierParams(
@@ -410,9 +445,37 @@ def count_scratch_ints(B: int, L: int, k: int) -> int:
     return B * (-(-W // COUNT_RUN) * COUNT_RUN) + B
 
 
+def row_groups(B: int, rows: int) -> list[tuple[int, int]]:
+    """Read sets ``[0, B)`` in consecutive groups ``(b0, b1)`` of at most
+    ``rows``: the launches of a kernel whose batch is limited, each into
+    the rows ``out[b0:b1]`` of a row-major output.  Each output row depends
+    only on its own read set."""
+    return [(b0, min(B, b0 + rows)) for b0 in range(0, B, rows)] or [(0, 0)]
+
+
+def count_row_groups(B: int) -> list[tuple[int, int]]:
+    """The count kernel's launches for a batch of ``B`` read sets: groups of
+    at most :data:`COUNT_MAX_ROWS`, its grid's limit."""
+    return row_groups(B, COUNT_MAX_ROWS)
+
+
+def bag_row_groups(B: int, W: int) -> list[tuple[int, int]]:
+    """The bag kernel's launches for ``B`` read sets of ``W`` windows: one
+    launch for the whole batch (the kernel walks it in passes of
+    :data:`BAG_GROUP`) while ``2 BAG_GROUP W`` fits in the int32 that
+    indexes a pass's keys and entries; above that (``W`` > 8,388,607 at
+    ``BAG_GROUP`` = 128) groups of the largest ``Bg`` with ``2 Bg W <=
+    2^31 - 1``."""
+    rows = min(BAG_GROUP, _INT_MAX // (2 * max(W, 1)))
+    return [(0, B)] if rows >= BAG_GROUP else row_groups(B, rows)
+
+
 def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.Tensor:
     """``[B, L]`` int8 base codes -> vocabulary-aligned spectra ``[B, V]``
-    f32.  Counts are exact (integers below 2^24 per cell).
+    f32.  Counts are exact (integers below 2^24 per cell).  Read sets with
+    2^24 windows or more raise: there the JAX package's f32 count of known
+    windows is not exact either.  A batch above :data:`COUNT_MAX_ROWS`
+    read sets is counted in groups (:func:`count_row_groups`).
 
     On a card, ``csrc/count_spectra.cu``: each window is looked up once
     and the known ones' indices appended to an int32 scratch
@@ -424,8 +487,6 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
     if base_codes.device.type == "cpu":
         return count_spectra_ref(params, base_codes)
     suffix, vocab = vocab_args("count_spectra", params, base_codes)
-    if B > 65535:
-        raise ValueError(f"count_spectra: batch {B} exceeds the kernel's grid")
     W = L - params.k + 1
     if W >= 1 << 24:
         raise ValueError(
@@ -433,13 +494,17 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
         )
     V = params.n_vocab
     dev = base_codes.device
-    scratch = torch.empty(count_scratch_ints(B, L, params.k), dtype=torch.int32, device=dev)
+    groups = count_row_groups(B)
+    rows = max(b1 - b0 for b0, b1 in groups)
+    scratch = torch.empty(count_scratch_ints(rows, L, params.k), dtype=torch.int32, device=dev)
     out = torch.empty((B, V), dtype=torch.float32, device=dev)
-    _build.launch(
-        "kpop_count_spectra" + suffix,
-        base_codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, *vocab, V, scratch.data_ptr(), out.data_ptr(),
-    )
+    codes_p, out_p = base_codes.data_ptr(), out.data_ptr()
+    for b0, b1 in groups:  # each group from and into its rows (int8 codes, f32 out)
+        _build.launch(
+            "kpop_count_spectra" + suffix,
+            codes_p + b0 * L, b1 - b0, L, params.k, int(params.canonical),
+            params.base, *vocab, V, scratch.data_ptr(), out_p + 4 * b0 * V,
+        )
     return out
 
 
@@ -538,36 +603,48 @@ def project_reads(
     the :func:`bag_plan` slices of the vocabulary are summed in order.
     The result is the same from run to run, and in either regime.  A bf16
     twister's rows are read at 2 bytes an element and widened to f32 in
-    the kernel, before the same f32 products and sums."""
+    the kernel, before the same f32 products and sums, by aligned 8-byte
+    words: its rows must start on 16 bytes (:func:`bf16_aligned`; a
+    :class:`ClassifierParams` lays them out so), or it raises.  Read sets
+    with 2^24 windows or more raise (the JAX package's f32 count of known
+    windows is not exact there either); read sets of more than 8,388,607
+    windows are taken in smaller groups (:func:`bag_row_groups`)."""
     B, L = _check_codes("project_reads", params, base_codes)
     if base_codes.device.type == "cpu":
         return project_reads_ref(params, base_codes, normalize)
     suffix, vocab = vocab_args("project_reads", params, base_codes)
-    _build.check_cuda("project_reads", base_codes, params.twister,
-                      dtypes=(torch.int8, params.twister.dtype))
-    if params.twister.data_ptr() % 16:
+    tw = params.twister
+    if tw.device != base_codes.device or tw.stride(1) != 1 or tw.stride(0) < tw.shape[1]:
+        raise ValueError("project_reads: the twister must lie on the codes' device in rows of "
+                         "contiguous columns")
+    if tw.data_ptr() % 16:
         raise ValueError("project_reads: the twister must start on 16 bytes (bulk copies)")
-    V, d = params.twister.shape
+    if tw.dtype == torch.bfloat16 and not bf16_aligned(tw):
+        raise ValueError("project_reads: a bf16 twister's rows must each start on 16 bytes "
+                         f"(row stride {tw.stride(0)}); lay it out with pipeline.bf16_rows")
+    V, d = tw.shape
     W = L - params.k + 1
-    Bg = min(B, BAG_GROUP)
-    # a window count is exact in an f32 entry below 2^24, and 2 Bg W
-    # entries index ints
-    if W >= 1 << 24 or 2 * Bg * W > _INT_MAX:
+    # a window count is exact in an f32 entry below 2^24
+    if W >= 1 << 24:
         raise ValueError(
-            f"project_reads: {W} windows a read set exceed the kernel's keys"
+            f"project_reads: {W} windows a read set; a count above 2^24 is not exact in f32"
         )
+    groups = bag_row_groups(B, W)
+    Bg = min(BAG_GROUP, max(b1 - b0 for b0, b1 in groups))
     S = bag_plan(V, d, _sm_count(base_codes.device))
     dev = base_codes.device
-    iwork = torch.empty(bag_workspace_ints(B, L, params.k, V), dtype=torch.int32, device=dev)
+    iwork = torch.empty(bag_workspace_ints(Bg, L, params.k, V), dtype=torch.int32, device=dev)
     fwork = torch.empty(S * Bg * d, dtype=torch.float32, device=dev)
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
-    _build.launch(
-        "kpop_embedding_bag" + suffix,
-        base_codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, *vocab, V,
-        params.twister.data_ptr(), BAG_ROW_TYPES[params.twister.dtype], d, int(normalize), S,
-        iwork.data_ptr(), fwork.data_ptr(), out.data_ptr(),
-    )
+    codes_p, out_p = base_codes.data_ptr(), out.data_ptr()
+    for b0, b1 in groups:  # each group from and into its rows (int8 codes, f32 out)
+        _build.launch(
+            "kpop_embedding_bag" + suffix,
+            codes_p + b0 * L, b1 - b0, L, params.k, int(params.canonical),
+            params.base, *vocab, V,
+            tw.data_ptr(), BAG_ROW_TYPES[tw.dtype], d, tw.stride(0), int(normalize),
+            S, iwork.data_ptr(), fwork.data_ptr(), out_p + 4 * b0 * d,
+        )
     return out
 
 

@@ -374,14 +374,13 @@ def _stream_footprint(rows: int, ns: int, d: int, wire_bytes: int, sub_step: int
     """Device bytes of a streamed fit with wire blocks of ``rows`` rows:
     two blocks of the wire table and of the three float64 row vectors
     (alpha, u and phi's row scale), beta and v; then the larger of the two
-    passes: the Gram pass's G and the kernel's workspace
-    (:func:`~..ops.gram.workspace_doubles` for its split-K slices of a
-    block), or the phi pass's V / sv, two blocks of S's size and two phi
+    passes: the Gram pass's accumulator, which holds its split-K partials
+    for the whole pass, and G (:func:`~..ops.gram.accumulator_doubles`), or
+    the phi pass's V / sv, two blocks of S's size and two phi
     blocks, in sub-blocks of at most ``sub_step`` rows; and
     :data:`ALLOC_SLACK`."""
     blocks = 2 * rows * (ns * wire_bytes + 3 * 8) + 2 * ns * 8 + ALLOC_SLACK
-    slices = gram.split_plan(rows, ns, n_sm)[0]
-    gram_pass = (ns * ns + gram.workspace_doubles(rows, ns, slices, True)) * 8
+    gram_pass = gram.accumulator_doubles(rows, ns, n_sm) * 8
     phi_pass = (ns * d + 2 * min(sub_step, rows) * (ns + d)) * 8
     return blocks + max(gram_pass, phi_pass)
 
@@ -538,14 +537,15 @@ def _ca_fit_streamed(wire_table, kind: str, d: int, d_full: int, vectors: tuple,
         [(wire_table, wire_dtype), (alpha, f64), (u, f64), (rs, f64)], rows, device)
     beta_d, v_d = (torch.as_tensor(np.asarray(a, np.float64), device=device) for a in (beta, v))
 
-    # pass 1: G += S_b^T S_b, block by block
-    G = torch.zeros((ns, ns), dtype=f64, device=device)
+    # pass 1: G = sum_b S_b^T S_b, the partials kept across the blocks
+    acc = gram.GramAccumulator(beta_d, v_d, rows)
     for i, j in blocks:
         x, a, uu, _ = stream.get(i, j)
-        gram.residual_gram(x, a, uu, beta_d, v_d, out=G)
+        acc.add(x, a, uu)
         if on_block is not None:
             on_block()
-    G = G.cpu().numpy()
+    G = acc.finish().cpu().numpy()
+    del acc
     if not np.isfinite(G).all():
         raise FloatingPointError("ca_fit_sharded: the Gram of the residual is not finite")
     tm.mark("gram")

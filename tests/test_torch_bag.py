@@ -18,6 +18,7 @@ adds the row count times, and the slices sum in another order.  The
 integer counts equal count_spectra_ref exactly."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -246,17 +247,53 @@ def test_emulated_bag_on_bf16_rows(n_sm):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_ring_windows_hold_each_row_slice(dtype):
-    """The staged ring's copies of a hit row at d = 511 (odd, so rows
-    start at every offset within a chunk): from the 16-byte aligned
-    window at or just before twister[v, col0] (8 elements for bf16, 4 for
-    f32), the kernel's chunks of each column block, zero-filled past the
-    twister's end; the lane reads column col0 + c at the row's shift + c.
-    Every copy starts on 16 bytes, and an entry's staged offset (slot x
-    stride + shift) fits in its 16 bits."""
-    V, d = 300, 511
+    """The staged ring's copies of a hit row at d = 511, in the rows the
+    kernel takes (check_ring_windows: f32 rows of 511, odd, so they start
+    at every offset within a chunk; bf16 rows of 512): from the 16-byte
+    aligned window at or just before twister[v, col0] (8 elements for
+    bf16, 4 for f32), the kernel's chunks of each column block,
+    zero-filled past the twister's end; the lane reads column col0 + c at
+    the row's shift + c.  Every copy starts on 16 bytes, and an entry's
+    staged offset (slot x stride + shift) fits in its 16 bits."""
+    check_ring_windows(dtype, 511)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_windows_hold_each_row_slice_at_an_even_d(dtype):
+    """The same at d = 510, where f32 rows start at the even offsets."""
+    check_ring_windows(dtype, 510)
+
+
+@pytest.mark.parametrize("d", [37, 129])
+def test_ring_windows_of_aligned_bf16_rows(d):
+    """bf16 rows laid out as the port lays them (pipeline.bf16_rows: a row
+    stride of d rounded up to 8 elements) at a narrow d and at one column
+    past a block: every window starts at its row, shift 0, and each lane
+    reads its 4 consecutive columns as one 8-byte word (word_read)."""
+    check_ring_windows(torch.bfloat16, d)
+
+
+def padded(tw: torch.Tensor, ld: int) -> torch.Tensor:
+    """The flat elements of ``tw [V, d]`` in rows of ``ld`` (0 in the
+    padding), up to its last element: what the kernel reads."""
+    V, d = tw.shape
+    out = torch.zeros((V, ld), dtype=tw.dtype)
+    out[:, :d] = tw
+    return out.reshape(-1)[: (V - 1) * ld + d]
+
+
+def check_ring_windows(dtype, d):
+    """The ring's windows of every row and column block of a random [300,
+    d] twister in the rows the kernel takes (f32 contiguous, bf16 as
+    pipeline.bf16_rows lays it out, in rows of a multiple of 8), and, for
+    bf16 rows, the lanes' reads of 4 consecutive columns each as one 8-byte
+    word (word_read)."""
+    V = 300
     tw = torch.from_numpy(np.random.default_rng(5).standard_normal((V, d)).astype(np.float32))
-    tw = tw.to(dtype)
-    flat, size = tw.reshape(-1), V * d
+    tw = tp.bf16_rows(tw) if dtype == torch.bfloat16 else tw
+    ld = tw.stride(0)
+    flat = padded(tw, ld)
+    size = len(flat)
     # Row<Tw>: elements a 16-byte chunk, chunks a staged row, its elements
     per = 16 // tw.element_size()
     chunks = tp.BAG_COLS // per + 1
@@ -264,12 +301,14 @@ def test_ring_windows_hold_each_row_slice(dtype):
     assert (per, chunks) == ((8, 17) if dtype == torch.bfloat16 else (4, 33))
     assert chunks * 16 >= tp.BAG_COLS * tw.element_size() + 16 - tw.element_size()
     assert (tp.BAG_TILE_ROWS - 1) * stride + per - 1 < 1 << 16
+    cols_of = lane_cols(True)
     shifts = set()
     for col0 in range(0, d, tp.BAG_COLS):
         cols = min(tp.BAG_COLS, d - col0)
+        inside = col0 + cols_of < d
         for v in range(V):
-            start = (v * d + col0) & ~(per - 1)
-            shift = v * d + col0 - start
+            start = (v * ld + col0) & ~(per - 1)
+            shift = v * ld + col0 - start
             assert start * tw.element_size() % 16 == 0
             staged = torch.zeros(stride, dtype=dtype)
             for q in range(chunks):
@@ -277,8 +316,101 @@ def test_ring_windows_hold_each_row_slice(dtype):
                 n = max(0, min(per, size - src))  # the bytes the copy reads
                 staged[per * q : per * q + n] = flat[src : src + n]
             assert torch.equal(staged[shift : shift + cols], tw[v, col0 : col0 + cols])
+            if dtype == torch.bfloat16:
+                assert shift == 0
+                got = word_read(staged.view(torch.int16).numpy().view(np.uint16), shift)
+                want = tw[v].float().numpy()[(col0 + cols_of)[inside]]
+                np.testing.assert_array_equal(got[inside], want)
             shifts.add(shift)
-    assert shifts == set(range(per))
+    assert shifts == set(range(0, per, math.gcd(ld, per)))
+
+
+def lane_cols(words: bool) -> np.ndarray:
+    """The kernel's lane_col: ``[32, 4]`` columns of each lane within a
+    BAG_COLS-column block, interleaved (l + 32 k, f32 rows) or 4
+    consecutive a lane (4 l + k, bf16 rows)."""
+    lane, k = np.arange(32)[:, None], np.arange(4)[None, :]
+    return 4 * lane + k if words else lane + 32 * k
+
+
+@pytest.mark.parametrize("words", [False, True])
+def test_each_column_has_one_owner_lane(words):
+    """Both lane maps give each column of a block one (lane, k) owner, so
+    each (read set, column) has one owner, which adds its entries in
+    order: the lane map does not change a bit of the result."""
+    assert sorted(lane_cols(words).ravel().tolist()) == list(range(tp.BAG_COLS))
+
+
+def word_read(bits: np.ndarray, at: int) -> np.ndarray:
+    """A warp's read of the bf16 row slice that starts at element ``at`` (a
+    multiple of 4) of ``bits`` (uint16: the twister, as bag_gather's
+    read_rows reads it, or a staged window, as the staged ring's add_entry
+    does, in the kernel's ALIGNED instantiation): lane l's 8-byte word at
+    at + 4 l, zero past the end, widened as widen4.  Returns ``[32, 4]``
+    f32, lane by column."""
+    assert at % 4 == 0
+    size = len(bits)
+    e = np.array([[int(bits[w]) if w < size else 0 for w in range(at + 4 * lane, at + 4 * lane + 4)]
+                  for lane in range(32)], dtype=np.uint32)
+    lo, hi = e[:, 0] | e[:, 1] << 16, e[:, 2] | e[:, 3] << 16
+    out = np.stack([lo << 16, lo & 0xFFFF0000, hi << 16, hi & 0xFFFF0000], axis=1)
+    return out.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("d,ld", [(511, 512), (512, 512), (37, 40)])
+def test_gather_words_hold_each_row_slice(d, ld):
+    """The gather's bf16 rows read by 8-byte words in rows of ``ld`` (a
+    multiple of 8, as pipeline.bf16_rows lays them out; at d = 512 a
+    contiguous twister is so): each lane's 4 consecutive columns, one
+    word, are the row's elements widened to f32, up to the twister's last
+    element."""
+    V = 40
+    tw = torch.from_numpy(np.random.default_rng(5).standard_normal((V, d)).astype(np.float32))
+    bits = padded(tw.to(torch.bfloat16), ld).view(torch.int16).numpy().view(np.uint16)
+    want = tw.to(torch.bfloat16).float().numpy()
+    cols = lane_cols(True)
+    shifts = set()
+    for col0 in range(0, d, tp.BAG_COLS):
+        inside = col0 + cols < d
+        for v in range(V):
+            got = word_read(bits, v * ld + col0)
+            np.testing.assert_array_equal(got[inside], want[v, (col0 + cols)[inside]])
+            shifts.add((v * ld + col0) & 3)
+    assert shifts == {0}
+
+
+@pytest.mark.parametrize("d", [511, 37, 512])
+def test_bf16_rows_start_on_16_bytes(d):
+    """pipeline.bf16_rows: the twister cast to bf16 in rows of d rounded up
+    to BF16_ROW_ALIGN elements, each row on 16 bytes, 0 in the padding,
+    its values those of the plain cast."""
+    tw = torch.from_numpy(np.random.default_rng(6).standard_normal((50, d)).astype(np.float32))
+    got = tp.bf16_rows(tw)
+    ld = -(-d // tp.BF16_ROW_ALIGN) * tp.BF16_ROW_ALIGN
+    assert got.dtype == torch.bfloat16 and got.shape == (50, d) and got.stride() == (ld, 1)
+    assert got.data_ptr() % 16 == 0 and ld * 2 % 16 == 0
+    assert torch.equal(got, tw.to(torch.bfloat16))
+    assert not torch.as_strided(got, (50, ld), (ld, 1))[:, d:].any()
+    assert tp.bf16_aligned(got)
+
+
+@pytest.mark.parametrize("d", [511, 37, 512])
+def test_classifier_params_hold_bf16_rows_on_16_bytes(d):
+    """ClassifierParams lays a bf16 twister given in other rows (a
+    contiguous one at d = 511 or 37) out as pipeline.bf16_rows does, its
+    values unchanged, and keeps one already so laid out (d = 512) as it is:
+    the bag kernel reads bf16 rows only by aligned words.  f32 twisters
+    stay as given."""
+    tw = torch.from_numpy(np.random.default_rng(6).standard_normal((50, d)).astype(np.float32))
+    flat = tw.to(torch.bfloat16)
+    lut = torch.full((4**2 + 1,), 50, dtype=torch.int32)
+    rest = (torch.ones(d), torch.zeros((3, d)), torch.ones(3), 2, True)
+    held = tp.ClassifierParams(lut, flat, *rest).twister
+    ld = -(-d // tp.BF16_ROW_ALIGN) * tp.BF16_ROW_ALIGN
+    assert tp.bf16_aligned(held) and held.stride() == (ld, 1) and torch.equal(held, flat)
+    assert (held.data_ptr() == flat.data_ptr()) == (d % tp.BF16_ROW_ALIGN == 0)
+    assert not tp.bf16_aligned(flat) or d % tp.BF16_ROW_ALIGN == 0
+    assert tp.ClassifierParams(lut, tw, *rest).twister is tw
 
 
 def test_emulated_bag_does_not_depend_on_the_key_order():

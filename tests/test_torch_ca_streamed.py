@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from kpop_tpu.core.ca import fit_ca
+from kpop_tpu_torch.ops import gram
 from kpop_tpu_torch.parallel import sharded as port
 
-from test_torch_ca import DEVICE_TWISTER_ATOL, TWISTER_ATOL, as_tuple, assert_ca_close
+from test_torch_ca import (DEVICE_TWISTER_ATOL, GRAM_RTOL, TWISTER_ATOL, as_tuple,
+                           assert_ca_close)
 
 BUDGET = 32 << 10  # far below each table's resident footprint
 SV_RTOL_RESIDENT = 1e-10
@@ -59,7 +61,78 @@ def table_of(wire: str, rows: int = 2048, ns: int = 9, seed: int = 3) -> np.ndar
         return rng.integers(0, 200, size=(rows, ns)).astype(np.int32)
     if wire == "u16":
         return rng.integers(0, 60000, size=(rows, ns)).astype(np.int32)
+    if wire == "f32":  # exactly f32, not integer
+        return (rng.random((rows, ns)) + 0.1).astype(np.float32)
     return rng.random((rows, ns)) + 0.1  # f32-inexact: the f64 wire
+
+
+def accumulated(x, alpha, u, beta, v, rows: int) -> torch.Tensor:
+    """The Gram of ``x`` through a GramAccumulator in blocks of ``rows``."""
+    acc = gram.GramAccumulator(beta, v, rows)
+    for i in range(0, x.shape[0], rows):
+        acc.add(x[i : i + rows], alpha[i : i + rows], u[i : i + rows])
+    return acc.finish()
+
+
+@pytest.mark.parametrize("rows", [1000, 300, 64, 999])
+@pytest.mark.parametrize("wire", [torch.uint8, torch.uint16, torch.float32, torch.float64])
+def test_gram_accumulator_plain_order(wire, rows):
+    """The streamed Gram's order in plain PyTorch (the accumulator on the
+    CPU): each block's rows over the slices that the pass's full block
+    fixes, into per-slice partials, the slices added once at the end.  In
+    one block, in blocks with a short last one (300, 64, 999 rows of
+    1,000), on every wire, at ns = 37 (not a multiple of 16): within
+    GRAM_RTOL of max |G| of numpy float64 and of the one-launch plain
+    version, the same bits on a second run, and every row of each block in
+    exactly one slice."""
+    rng = np.random.default_rng(21)
+    K, ns = 1000, 37
+    x = rng.poisson(3.0, size=(K, ns)).astype(np.float64)
+    if wire == torch.float32:
+        x = (x + rng.random((K, ns))).astype(np.float32).astype(np.float64)
+    if wire == torch.float64:
+        x = x + rng.random((K, ns))
+    alpha, u = rng.random(K) + 0.5, rng.random(K) * 1e-2
+    beta, v = (rng.random(ns) + 0.5) * 1e-3, rng.random(ns)
+    S = x * alpha[:, None] * beta[None, :] - np.outer(u, v)
+    want = S.T @ S
+    t = [torch.as_tensor(a) for a in (alpha, u, beta, v)]
+    xt = torch.as_tensor(x).to(wire)
+    got = accumulated(xt, *t, rows)
+    assert got.dtype == torch.float64 and got.shape == (ns, ns)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=GRAM_RTOL * scale)
+    np.testing.assert_allclose(got.numpy(), gram.residual_gram_ref(xt, *t).numpy(), rtol=0,
+                               atol=GRAM_RTOL * scale)
+    assert torch.equal(got, accumulated(xt, *t, rows))
+    slices = gram.split_plan(rows, ns)[0]
+    for i in range(0, K, rows):
+        n = min(K, i + rows) - i
+        R = gram.slice_rows(n, slices)
+        assert R % gram.CHUNK == 0 and slices * R >= n
+
+
+@pytest.mark.parametrize("budget", [96 << 10, 256 << 10])
+@pytest.mark.parametrize("wire", ["u8", "u16", "f32", "f64"])
+def test_streamed_blocks_of_several_sizes(mesh, wire, budget):
+    """Streamed fits whose blocks hold several split-K slices and end on a
+    short block, at ns = 21, on every wire: within tests/test_dd.py's
+    bounds of fit_ca and of the JAX package's resident and streamed fits,
+    and the same bits on a second fit."""
+    from kpop_tpu.parallel import sharded as jax_sharded
+
+    table = table_of(wire, rows=1500, ns=21, seed=8)
+    got = port.ca_fit_sharded(table, hbm_bytes=budget, device="cpu")
+    st = port.LAST_CA_STREAM
+    assert st is not None and st["wire"] == wire and 1500 % st["block_rows"]
+    assert gram.split_plan(st["block_rows"], 21)[0] > 1
+    assert_ca_close(got, as_tuple(fit_ca(table.astype(np.float64))))
+    again = port.ca_fit_sharded(table, hbm_bytes=budget, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(got, again))
+    for kwargs in ({}, {"hbm_bytes": BUDGET}):
+        ref = jax_sharded.ca_fit_sharded(mesh, table, **kwargs)
+        assert (jax_sharded.LAST_CA_STREAM is not None) == bool(kwargs)
+        assert_ca_close(got, ref)
 
 
 @pytest.mark.parametrize("phi", ["host", "device"])

@@ -3,13 +3,18 @@
 ``csrc/wide_lookup.cuh``), on one CUDA card.
 
 Run from the root of a checkout: ``python3 tools/probe_bag.py [--parent
-DIR]``.  It needs the CUDA toolkit (``nvcc``); the package's kernels build
-into ``kpop_tpu_torch/_build`` as on first use, and the probe builds
-patched copies of the bag source in a temporary directory.  ``--parent
-DIR`` names a directory that holds an earlier ``embedding_bag.cu`` with its
-``wide_lookup.cuh`` (``git show <commit>:kpop_tpu_torch/csrc/<file>``),
-whose wide entry point takes the cuckoo table as ``build_cuckoo`` returns
-it, timed beside the package's.
+DIR] [--dtype bf16]``.  It needs the CUDA toolkit (``nvcc``); the package's
+kernels build into ``kpop_tpu_torch/_build`` as on first use, and the probe
+builds patched copies of the bag source in a temporary directory.
+``--parent DIR`` names a directory that holds an earlier
+``embedding_bag.cu`` with its ``wide_lookup.cuh`` (``git show
+<commit>:kpop_tpu_torch/csrc/<file>``), timed beside the package's; its
+entry points may predate the row stride, the row type or the cuckoo
+table's probe layout.  ``--dtype bf16`` casts every input's twister to bf16 (the
+kernel's row type 1) in the port's layout (``pipeline.bf16_rows``: rows of
+512 elements at d = 511, each on 16 bytes; a parent without a row stride
+reads a contiguous copy), so that each regime and variant below runs on
+bf16 rows.
 
 Inputs (``chip_smoke.py``'s, seed 1 and 7): phase 3's batch (128 read-like
 sets of 30,208 bases) at k = 16 with a vocabulary of 1,011,930 on the
@@ -34,13 +39,13 @@ object:
 - ``variants``: on each input, the median time and the accumulate's device
   time of copies of the package's source: each regime forced
   (``GATHER_TILE_ENTRIES``), the gather with 1 or 4 entries' rows in flight a
-  warp (``GATHER_AHEAD``), the staged ring with 4 tiles in flight (``SLOTS``),
-  and each accumulate with its sums alone (every row read from one row,
-  which stays in L1) or its row reads alone (the staged ring's copies
-  without the sums; the gather's loads added into one sum, without the
-  counts and the owner's select);
+  warp (``GATHER_AHEAD``), the staged ring with 4 tiles in flight
+  (``SLOTS``), and each accumulate with its sums alone (every row
+  read from one row, which stays in L1) or its row reads alone (the staged
+  ring's copies without the sums; the gather's loads added into one sum,
+  without the counts and the owner's select);
 - ``ptxas``: nvcc's register and spill report for the package's source;
-- ``card``: the card's name and power limit.
+- ``card``: the card's name and power limit; ``dtype``: the twister's.
 """
 
 from __future__ import annotations
@@ -91,8 +96,7 @@ VARIANTS = {
     # alone), and the row reads alone
     "gather_sums_alone": [
         ("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
-        ("(size_t)__shfl_sync(FULL, v, us[u] & 31) * d",
-         "(size_t)(__shfl_sync(FULL, v, us[u] & 31) & 0) * d")],
+        ("const int v = tile_row0 + (a.x >> 16);", "const int v = 0 * (tile_row0 + a.x);")],
     "gather_reads_alone": [
         ("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
         (GATHER_SUMS, "acc[0][k] += x[u][k];")],
@@ -103,18 +107,26 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 PARENT_WIDE = (_I, _P, _I, _U, _U, _U, _U, _P, _P)
 
 
+#: what the --parent source's entry points take: a row stride after d, a
+#: row type after the twister, and the cuckoo table's probe layout (each
+#: read from the source: earlier sources lack the later ones)
+PARENT_API = {"ld": True, "row_type": True, "probe": True}
+
+
 def signature(name: str, parent: bool) -> tuple:
-    """The entry point's argument types; a parent's takes no row type
-    (the argument after the twister, eighth from the end: its rows are
-    f32), and its wide entry point takes PARENT_WIDE in place of the
-    package's vocabulary arguments."""
-    sig = _build._SIGNATURES[name]
-    if not parent:
-        return sig
-    sig = sig[:-8] + sig[-7:]
-    if not name.endswith("_wide"):
-        return sig
-    return sig[:6] + PARENT_WIDE + sig[6 + len(_build._WIDE):]
+    """The entry point's argument types; a parent's lacks the row stride
+    (seventh from the end) or the row type (after the twister) where its
+    source has none, and its wide entry point takes PARENT_WIDE in place of
+    the package's vocabulary arguments where it has no probe layout."""
+    sig = list(_build._SIGNATURES[name])
+    if parent:
+        if not PARENT_API["ld"]:
+            del sig[-7]
+        if not PARENT_API["row_type"]:
+            del sig[-8]
+        if name.endswith("_wide") and not PARENT_API["probe"]:
+            sig = sig[:6] + list(PARENT_WIDE) + sig[6 + len(_build._WIDE):]
+    return tuple(sig)
 
 
 def patched(src: str, edits, what: str) -> str:
@@ -164,7 +176,7 @@ def vocab_of(params, codes, parent: bool):
     """The entry point's suffix and vocabulary arguments, as
     pipeline.vocab_args gives them; a parent takes the cuckoo table as
     build_cuckoo returns it, or the sorted limbs as two arrays."""
-    if not parent or params.vocab_lut is not None:
+    if not parent or params.vocab_lut is not None or PARENT_API["probe"]:
         return pl.vocab_args("probe", params, codes)
     k_lo = split_k(params.k, params.base)[1]
     if params.cuckoo is not None:
@@ -174,11 +186,13 @@ def vocab_of(params, codes, parent: bool):
                      params.vocab_lo.data_ptr())
 
 
-def bag_launcher(fns, params, codes, parent: bool = False):
-    """project_reads's launch through a given library: on preallocated
-    buffers (the kernel alone), and with its workspace and output
-    allocated first, as project_reads calls it."""
-    V, d = params.twister.shape
+def bag_launcher(fns, params, codes, parent: bool = False, twister=None):
+    """project_reads's launch through a given library, on ``twister``
+    (``params.twister`` by default): on preallocated buffers (the kernel
+    alone), and with its workspace and output allocated first, as
+    project_reads calls it."""
+    twister = params.twister if twister is None else twister
+    V, d = twister.shape
     Bn, Ln = codes.shape
     S = pl.bag_plan(V, d, torch.cuda.get_device_properties(codes.device).multi_processor_count)
     iwork = torch.empty(pl.bag_workspace_ints(Bn, Ln, params.k, V), dtype=torch.int32,
@@ -187,9 +201,11 @@ def bag_launcher(fns, params, codes, parent: bool = False):
     out = torch.empty((Bn, d), dtype=torch.float32, device=codes.device)
     suffix, vocab = vocab_of(params, codes, parent)
     fn = fns["kpop_embedding_bag" + suffix]
-    row_type = () if parent else (pl.BAG_ROW_TYPES[params.twister.dtype],)
+    row_type = (() if parent and not PARENT_API["row_type"]
+                else (pl.BAG_ROW_TYPES[twister.dtype],))
+    ld = () if parent and not PARENT_API["ld"] else (twister.stride(0),)
     head = (codes.data_ptr(), Bn, Ln, params.k, int(params.canonical), params.base, *vocab, V,
-            params.twister.data_ptr(), *row_type, d, 1, S)
+            twister.data_ptr(), *row_type, d, *ld, 1, S)
 
     def launch(i, f, o):
         err = fn(*head, i.data_ptr(), f.data_ptr(), o.data_ptr(),
@@ -300,6 +316,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="directory holding an earlier embedding_bag.cu and its "
                     "wide_lookup.cuh")
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="the twister's dtype on every input (bf16: each cast from the f32 one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_bag: no CUDA device is visible", file=sys.stderr)
@@ -312,12 +330,19 @@ def main() -> int:
     if args.parent:
         sources["parent"] = (Path(args.parent) / "embedding_bag.cu").read_text()
         header["parent"] = (Path(args.parent) / "wide_lookup.cuh").read_text()
+        PARENT_API.update(ld="int ld" in sources["parent"],
+                          row_type="int row_type" in sources["parent"],
+                          probe="const int32_t* probe" in sources["parent"])
+        if args.dtype == "bf16" and not PARENT_API["row_type"]:
+            raise SystemExit("probe_bag: the parent's source takes no bf16 rows")
     report = {"inputs": {}, "times": {}, "stages": {}, "variants": {}}
     td = tempfile.mkdtemp()
     try:
         libs, report["ptxas"] = build(sources, td, "kpop_embedding_bag", header)
         inputs = {**synthetic_inputs(dev), **real_inputs(dev)}
         for name, (params, codes) in inputs.items():
+            if args.dtype == "bf16":
+                params = chip_smoke.bf16_of(params)
             report["inputs"][name] = input_stats(params, codes)
             want = pl.project_reads_ref(params, codes)
 
@@ -328,10 +353,12 @@ def main() -> int:
             runs = {"package": bag_launcher(libs["package"], params, codes)}
             times = {"package within tolerance": close(runs["package"][0]())}
             order = ["package", "package"]
-            if args.parent:
-                runs["parent"] = bag_launcher(libs["parent"], params, codes, parent=True)
+            if args.parent:  # a parent without a row stride reads contiguous rows
+                flat = None if PARENT_API["ld"] else params.twister.contiguous()
+                runs["parent"] = bag_launcher(libs["parent"], params, codes, parent=True,
+                                              twister=flat)
                 times["parent within tolerance"] = close(runs["parent"][0]())
-                order = ["parent", "package", "package", "parent"]
+                order = ["parent"] + order + ["parent"]
             for who in order:
                 times.setdefault(who + " alone ms", []).append(median_ms(runs[who][0]))
                 times.setdefault(who + " as called ms", []).append(median_ms(runs[who][1]))
@@ -353,11 +380,12 @@ def main() -> int:
             report["variants"][name] = variants
             print(json.dumps({name: [report["inputs"][name], times, report["stages"][name],
                                      variants]}), flush=True)
-            del params, codes, want
+            del params, codes, want, runs
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(td, ignore_errors=True)
     report["card"] = chip_smoke.card_line()
+    report["dtype"] = args.dtype
     print(json.dumps(report))
     return 0
 
