@@ -102,7 +102,23 @@ prints no result.  It imports nothing of JAX or of the JAX package
    phi on the host; then the twister cast to bf16 serves the bag route at
    accuracy >= 0.95, and the same bf16 parameters built from the host
    twister (as ``kpop-classify-torch --dtype bf16`` builds them) take less
-   device memory than an f32 twister and equal the card's cast bit for bit.
+   device memory than an f32 twister and equal the card's cast bit for bit;
+   the first batch is also counted in the row ranges of 4 ranks (the
+   ``count_spectra_rows`` row), as phase 3's k = 10 batch is: each range
+   torch.equal to its plain version and to the whole kernel's columns;
+8. sharded: phase 7's k = 16 table trained rank-sharded by 4 gloo ranks on
+   the one card (``chip_smoke.py --sharded-rank``, the kernels built by this
+   process first; NCCL refuses two ranks on one card), its sv within 1e-10
+   of phase 7's fit and the same bits on every rank; phase 4's held-out
+   read sets served k-mer-sharded through ``kpop-classify-torch``'s layout
+   choice and serve step, with ``--kmer-parallel 4`` and with
+   ``KPOP_PARAMS_HBM_BYTES=600000000``, on f32 and bf16 shards: accuracy >=
+   0.95, the first batch within 1e-4 of the host float64 chain (bf16
+   within 2e-2 x max(1, |x|) of f32), each rank's shard and device memory,
+   the launches of the main path summed over the ranks, the rate, and a
+   batch split into count, product, all-reduce (gloo: through the host)
+   and distances; then the same at world size 1 over NCCL, whose
+   all-reduce runs on the card.
 
 The kernel table is printed as one JSON line, then the card's name and
 power limit, and last the result line
@@ -155,6 +171,8 @@ TF32_FLOPS = 495e12  # TF32 on the tensor cores
 F64_TC_FLOPS = 67e12  # FP64 tensor cores
 F64_FLOPS = 34e12  # FP64 outside the tensor cores
 SLICE_KERNELS = ("kpop_count_spectra", "kpop_embedding_bag", "kpop_pairwise_dist")
+# phase 8: the count in the row ranges of COUNT_RANGES ranks
+COUNT_RANGES = 4
 # phase 7: phase 4's corpus counted at k = 16 (two limbs: k_hi 1, k_lo 15),
 # whose vocabulary the phase 3 wide rows take the size of
 LARGE_K = 16
@@ -943,7 +961,8 @@ def count_check(params, codes, what: str):
     suffix, vocab = pl.vocab_args("count_spectra", params, codes)
     alone = kernel_alone_ms(
         "kpop_count_spectra" + suffix, codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, *vocab, params.n_vocab, scratch.data_ptr(), out.data_ptr())
+        params.base, *vocab, params.n_vocab, 0, params.n_vocab, 0, scratch.data_ptr(),
+        out.data_ptr())
     wrapper = time_ms(lambda: pl.count_spectra(params, codes))
     bits, cells, slices = pl.count_plan(W, params.n_vocab)
     log("kernel count_spectra at %s: %s (plain and a second call); %d slices of %d u%d "
@@ -951,6 +970,74 @@ def count_check(params, codes, what: str):
         % (what, COUNT_TOL, slices, cells, bits, alone, wrapper))
     del again, want, scratch, out
     return got
+
+
+def count_rows_check(params, codes, what: str, timed: bool = False):
+    """The count over COUNT_RANGES row ranges of ceil(V / COUNT_RANGES)
+    rows, as the ranks of k-mer-sharded serving count them (the last one
+    past V): each torch.equal to its plain version and to those columns of
+    the whole-vocabulary kernel (zero past V), with each read set's count of
+    all its known windows equal to the plain version's and to the whole
+    spectrum's row sum.  With ``timed``, the kernel table's row of the
+    first range."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    whole = pl.count_spectra(params, codes)
+    V = params.n_vocab
+    V_local = -(-V // COUNT_RANGES)
+    sums = whole.sum(dim=1, dtype=torch.float64)
+    for j in range(COUNT_RANGES):
+        row0 = j * V_local
+        got, known = pl.count_spectra(params, codes, row0, V_local, known=True)
+        want, known_ref = pl.count_spectra_ref(params, codes, row0, V_local, known=True)
+        torch.cuda.synchronize()
+        n = min(V, row0 + V_local) - row0
+        same = (torch.equal(got, want), torch.equal(got[:, :n], whole[:, row0: row0 + n]),
+                not got[:, n:].any(), torch.equal(known, known_ref),
+                torch.equal(known.double(), sums))
+        if not all(same):
+            raise AssertionError(f"count_spectra rows [{row0}, {row0 + V_local}) at {what}: "
+                                 f"(plain, whole, zero past V, known, row sums) equal: {same}")
+        del got, want
+    log("kernel count_spectra rows at %s: %d ranges of %d rows, each %s (plain, the whole "
+        "kernel's columns) with every read set's known windows" % (what, COUNT_RANGES, V_local,
+                                                                   COUNT_TOL))
+    if not timed:
+        return None
+    B, L = codes.shape
+    ranges_ms = [time_ms(lambda: pl.count_spectra(params, codes, j * V_local, V_local, known=True))
+                 for j in range(COUNT_RANGES)]
+    scratch = torch.empty(pl.count_scratch_ints(B, L, params.k), dtype=torch.int32,
+                          device=codes.device)
+    out = torch.empty((B, V_local), dtype=torch.float32, device=codes.device)
+    suffix, vocab = pl.vocab_args("count_spectra", params, codes)
+    alone = kernel_alone_ms(
+        "kpop_count_spectra" + suffix, codes.data_ptr(), B, L, params.k, int(params.canonical),
+        params.base, *vocab, V, 0, V_local, 1, scratch.data_ptr(), out.data_ptr())
+    del scratch, out
+    log("kernel count_spectra rows at %s: ms as called by range %s, the first range's kernels "
+        "alone %.4f ms; the whole vocabulary %.4f ms as called"
+        % (what, ", ".join("%.4f" % t for t in ranges_ms), alone,
+           time_ms(lambda: pl.count_spectra(params, codes))))
+    table = params.vocab_lut if params.vocab_lut is not None else params.cuckoo
+    # codes and the table read once, the [B, V_local] range and the known
+    # counts written once; one add per window
+    return dict(
+        bound(codes.nbytes + table.nbytes + B * V_local * 4 + B * 4,
+              B * (L - params.k + 1) / F32_FLOPS * 1e3),
+        err=0.0, tol=COUNT_TOL, library_ms=None,
+        ms=time_ms(lambda: pl.count_spectra(params, codes, 0, V_local, known=True)),
+        plain_ms=time_ms(lambda: pl.count_spectra_ref(params, codes, 0, V_local, known=True),
+                         reps=3),
+        shape=f"{what}, rows [0, {V_local}) of {V}",
+        source="kpop_tpu_torch/csrc/count_spectra.cu",
+        replaces="kpop_tpu/parallel/serving.py:113 (the shard's scatter; "
+                 "kpop_tpu/ops/pipeline.py:179)",
+        launch="kpop_count_spectra" + ("" if params.vocab_lut is not None else "_wide"),
+        path="sharded",
+    )
 
 
 def count_blocks(dev, rng, L: int) -> dict:
@@ -1204,6 +1291,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     got = count_check(params, codes, f"[{B}, {L}], V={V}")
     if float(got[1].max()) < L - 300 - K:
         raise AssertionError("a repeated k-mer was not counted every time")
+    count_rows_check(params, codes, f"[{B}, {L}], k={K}, V={V}")
     for what, (p_, c_) in count_blocks(dev, np.random.default_rng(5), L).items():
         count_check(p_, c_, what)
         del p_, c_
@@ -2134,6 +2222,7 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
     from kpop_tpu_torch.core.matrix import KPopMatrix, MatrixType, NamedMatrix
     from kpop_tpu_torch.core.space import Metric
     from kpop_tpu_torch.core.twister import Twister
+    from kpop_tpu_torch.ops.encode import encode_reads_host
     from kpop_tpu_torch.ops.pipeline import build_classifier_params, params_around_twister
 
     t0 = time.perf_counter()
@@ -2148,7 +2237,6 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
     # rounded to f32
     t0 = time.perf_counter()
     fit = streamed_fits(dev, table, col_w, "large k")
-    del table
     coords, inertia, phi_dev = fit["coords"], fit["inertia"], fit.pop("phi_dev")
     coords64, inertia64, tw64 = coords, inertia, fit["tw64"]
     train_s = fit["device_wall"]
@@ -2203,7 +2291,13 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
     dmats, launches, accuracy, busy, launch_ms = serve_routes("large k", params, batches,
                                                               LARGE_K_KERNELS)
     log("large k: on %s" % card)
-    del params
+    # phase 8's count: the first batch in the row ranges of 4 ranks
+    codes = encode_reads_host(batches[0][1])
+    codes = torch.as_tensor(np.pad(codes, ((0, 0), (0, max(0, LARGE_K - codes.shape[1]))),
+                                   constant_values=-1), device=dev)
+    rows_row = count_rows_check(params, codes, f"phase 7's first batch {list(codes.shape)}, "
+                                f"k={LARGE_K}, V={params.n_vocab}, cuckoo", timed=True)
+    del params, codes
     torch.cuda.empty_cache()
     bf16 = bf16_serving("large k bf16", params16, batches, dmats,
                         ("kpop_embedding_bag_wide", "kpop_pairwise_dist"), ("bag",))
@@ -2220,7 +2314,359 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
         raise AssertionError(f"large k: distances off the host float64 chain: {host_err}")
     return dict(launches=launches, accuracy=accuracy, host_err=host_err, busy=busy,
                 vocab=len(vocab_hex), train_s=train_s, bf16_launches=bf16["launches"],
-                stream_launches=fit["launches"], stream_rows=fit["device_stream"]["block_rows"])
+                stream_launches=fit["launches"], stream_rows=fit["device_stream"]["block_rows"],
+                rows_row=rows_row, table=table, vocab_hex=vocab_hex, sv=fit["sv"], want=want)
+
+
+# ---------------- phase 8: sharded over ranks ----------------------------
+
+
+def stage_ms(step, batches) -> dict:
+    """A batch of k-mer-sharded serving split into its steps on this rank:
+    host encode and upload, count (``csrc/count_spectra.cu`` over the rank's
+    rows), product, all-reduce and distances (``csrc/pairwise.cu``); the
+    host clock around each, the card synchronized at each mark; the median
+    over ``batches`` in ms.  Every rank of the layout runs it, in step."""
+    import torch
+
+    from kpop_tpu_torch.ops.encode import encode_reads_host
+    from kpop_tpu_torch.ops.pipeline import distances_to_classes
+    from kpop_tpu_torch.parallel.mesh import all_reduce
+    from kpop_tpu_torch.parallel.serving import count_shard, project_shard
+
+    p, mesh = step.params, step.mesh
+    times: dict = {}
+
+    def mark(name, t0):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.setdefault(name, []).append((now - t0) * 1e3)
+        return now
+
+    for _truth, seqs in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codes = encode_reads_host(seqs)
+        b0, b1 = mesh.rows(codes.shape[0], "data")
+        codes = torch.as_tensor(np.ascontiguousarray(codes[b0:b1]), device=step.device)
+        t = mark("encode_upload", t)
+        spectra, known = count_shard(p, codes)
+        t = mark("count", t)
+        part = project_shard(p, spectra, known)
+        t = mark("product", t)
+        all_reduce(part, mesh.kmer_group)
+        t = mark("all_reduce", t)
+        distances_to_classes(p, part)
+        mark("distances", t)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def sharded_rank(rank: int, world: int, port: int, workdir: str, backend: str) -> int:
+    """One rank of phase 8 (``chip_smoke.py --sharded-rank``): phase 7's
+    k = 16 table trained rank-sharded over ``world`` ranks on the card
+    (``ca_fit_sharded(mesh=...)``), its sv held to phase 7's one-rank fit;
+    then phase 4's held-out read sets served k-mer-sharded, through the
+    layout choice and the serve step of ``kpop-classify-torch``, with
+    ``--kmer-parallel`` and with ``KPOP_PARAMS_HBM_BYTES``, on f32 and bf16
+    shards: accuracy, the first batch against the host float64 chain, each
+    rank's device memory, the launches of the main path and the rate.
+    Writes ``rank<r>.json`` into ``workdir``."""
+    import pickle
+
+    import torch
+
+    from kpop_tpu_torch import _build
+    from kpop_tpu_torch.cli.classify import DeviceStep, layout_kmer_parallel
+    from kpop_tpu_torch.core.kmers import KmerSpace
+    from kpop_tpu_torch.parallel import distributed
+    from kpop_tpu_torch.parallel import sharded
+    from kpop_tpu_torch.parallel.mesh import make_mesh
+    from kpop_tpu_torch.config import device
+    from kpop_tpu_torch.parallel.serving import params_around_sharded_twister, sharded_dmat_fn
+
+    dev = device()  # the card (KPOP_PLATFORM=cpu rehearses the phase on the CPU)
+    distributed.initialize(f"tcp://localhost:{port}", world, rank, backend)
+    table = np.load(os.path.join(workdir, "table.npy"), mmap_mode="r")
+    names = np.load(os.path.join(workdir, "names.npy")).tolist()
+    with open(os.path.join(workdir, "batches.pkl"), "rb") as f:
+        batches = pickle.load(f)
+    want0 = np.load(os.path.join(workdir, "want0.npy"))
+    sv7 = np.load(os.path.join(workdir, "sv7.npy"))
+    space = KmerSpace("DNA-ds", LARGE_K)
+    csums = table.sum(axis=0)
+    col_w = 1.0 / np.where(csums == 0.0, 1.0, csums)
+    out = dict(rank=rank, world=world, backend=backend, card=torch.cuda.get_device_name(0))
+
+    # the train path over the ranks, every count set to 0 just before, read
+    # just after
+    mesh = make_mesh(world, data_parallel=1)
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    coords, inertia, rows, sv = sharded.ca_fit_sharded(table, col_weights=col_w, phi="device",
+                                                        device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["train_phases"] = dict(sharded.LAST_CA_PHASES)
+    out["train_launches"] = dict(_build.LAUNCHES)
+    out["train_peak"] = torch.cuda.max_memory_allocated()
+    out["train_wire"], out["train_stream"] = sharded.LAST_DD_UPLOAD, sharded.LAST_CA_STREAM
+    out["rows"] = list(rows.rows)
+    out["sv_rel"] = float(np.abs(sv - sv7).max() / np.abs(sv7).max())
+    out["sv"] = sv.tolist()
+    if not out["sv_rel"] <= STREAM_SV_RTOL:
+        raise AssertionError(f"rank {rank}: sharded sv {out['sv_rel']:.3g} off phase 7's fit")
+    if not out["train_launches"]["kpop_ca_gram"] or out["train_launches"]["kpop_ca_gram_finish"] != 1:
+        raise AssertionError(f"rank {rank}: the sharded fit's Gram launches "
+                             f"{out['train_launches']}")
+    V, d = len(names), len(sv)
+    truth = np.concatenate([t for t, _ in batches])
+    n_seqs = len(truth)
+    configs = ([("f32", 1, None)] if world == 1 else
+               [("f32", world, None), ("f32", 0, 600_000_000), ("bf16", world, None),
+                ("bf16", 0, 600_000_000)])
+    out["serving"] = []
+    dmats32 = None
+    for dtype_name, kp_opt, budget in configs:
+        dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+        if budget:
+            os.environ["KPOP_PARAMS_HBM_BYTES"] = str(budget)
+        kp = layout_kmer_parallel(world, kp_opt, V * d * dtype.itemsize)
+        os.environ.pop("KPOP_PARAMS_HBM_BYTES", None)
+        mesh = make_mesh(world, data_parallel=world // kp)
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, v = params_around_sharded_twister(space, names, rows, inertia, coords, mesh,
+                                                  dtype=dtype)
+        torch.cuda.synchronize()
+        handoff_s = time.perf_counter() - t0
+        handoff_peak = torch.cuda.max_memory_allocated() - live
+        resident = torch.cuda.memory_allocated() - live
+        step = DeviceStep(params, mesh=mesh, dmat=sharded_dmat_fn(mesh, v))
+        serve(step, batches[:1])  # warm-up
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: every count set to 0 just before, read just after
+        for name in _build.LAUNCHES:
+            _build.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        blocks = serve(step, batches)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        serve_peak = torch.cuda.max_memory_allocated() - before + resident
+        dmat = np.concatenate(blocks)
+        if dmat.shape != (n_seqs, params.class_coords.shape[0]) or not np.isfinite(dmat).all():
+            raise AssertionError(f"rank {rank}: bad distances {dmat.shape}")
+        res = dict(dtype=dtype_name, option=(f"--kmer-parallel {kp_opt}" if kp_opt else
+                                             f"KPOP_PARAMS_HBM_BYTES={budget}"),
+                   dp=mesh.dp, kp=kp, all_reduce=torch.distributed.get_backend(mesh.kmer_group),
+                   accuracy=float((dmat.argmin(axis=1) == truth).mean()), wall_s=wall,
+                   seqs_per_s=n_seqs / wall, launches=launches, handoff_s=handoff_s,
+                   handoff_peak=handoff_peak, resident=resident, serve_peak=serve_peak,
+                   twister_bytes=V * d * dtype.itemsize,
+                   shard_bytes=params.twister.shape[0] * params.twister.stride(0) * dtype.itemsize,
+                   V_local=params.twister.shape[0], row0=params.row0,
+                   batch_rows=-(-len(batches[0][0]) // mesh.dp))
+        if res["accuracy"] < ACCURACY_GATE:
+            raise AssertionError(f"rank {rank}, {res['option']} {dtype_name}: accuracy "
+                                 f"{res['accuracy']} < {ACCURACY_GATE}")
+        missing = [n for n in ("kpop_count_spectra_wide", "kpop_pairwise_dist") if not launches[n]]
+        if missing or launches["kpop_embedding_bag_wide"]:
+            raise AssertionError(f"rank {rank}: the sharded main path's launches {launches}")
+        if dtype_name == "f32":
+            res["host_err"] = float(np.abs(blocks[0] - want0).max())
+            if res["host_err"] > HOST_CHAIN_ATOL:
+                raise AssertionError(f"rank {rank}: first batch {res['host_err']} off the host "
+                                     "float64 chain")
+            dmats32 = dmat
+        else:
+            res["bf16_err"] = float((np.abs(dmat - dmats32) / np.maximum(1.0, np.abs(dmats32))).max())
+            if res["bf16_err"] > BF16_BOUND:
+                raise AssertionError(f"rank {rank}: bf16 distances {res['bf16_err']} off f32")
+        # each rank holds its shard of the twister's rows, beside the
+        # replicated vocabulary and a batch's working set (its [B, V_local]
+        # f32 spectrum, the spectrum's bf16 cast, the count's scratch)
+        if res["V_local"] != -(-V // kp):
+            raise AssertionError(f"rank {rank}: a shard of {res['V_local']} rows")
+        tables = sum(t.nbytes for t in (params.cuckoo, params.cuckoo_probe, params.vocab_lut,
+                                        params.vocab_limbs) if t is not None)
+        res["peak_bound"] = (res["shard_bytes"] + tables
+                             + 3 * res["batch_rows"] * res["V_local"] * 4 + (64 << 20))
+        if res["serve_peak"] > res["peak_bound"]:
+            raise AssertionError(f"rank {rank}: serving took {res['serve_peak']} B of the card, "
+                                 f"above its shard, tables and a batch: {res['peak_bound']} B")
+        if kp_opt:
+            res["stages_ms"] = stage_ms(step, batches)
+        out["serving"].append(res)
+        del params, step
+        torch.cuda.empty_cache()
+    out["products"] = sharded_products(world, dev)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+    return 0
+
+
+def sharded_products(world: int, dev) -> dict:
+    """``project_sharded`` (B over data, K over kmer: dp = 2 at four ranks)
+    and ``pairwise_sharded`` (the queries over all ranks) on the card, on
+    seeded inputs the same on every rank, against numpy float64 within
+    tests/test_sharded.py:50's and :68's tolerances."""
+    from kpop_tpu_torch.parallel.mesh import make_mesh
+    from kpop_tpu_torch.parallel.sharded import pairwise_sharded, project_sharded
+
+    rng = np.random.default_rng(3)
+    mesh = make_mesh(world)
+    spectra = rng.random((BATCH, 50_000)).astype(np.float32)
+    tw = rng.standard_normal((50_000, 64)).astype(np.float32)
+    got = project_sharded(mesh, spectra, tw, device=dev)
+    s64 = spectra.astype(np.float64)
+    want = (s64 / s64.sum(axis=1, keepdims=True)) @ tw.astype(np.float64)
+    project_err = float((np.abs(got - want) - 2e-5 * np.abs(want)).max())
+    q, t = rng.standard_normal((1_000, 64)), rng.standard_normal((100, 64))
+    m = rng.random(64)
+    m /= m.sum()
+    got = pairwise_sharded(mesh, q, t, m, device=dev)
+    qn = q / np.sqrt((q * q * m).sum(axis=1))[:, None]
+    tn = t / np.sqrt((t * t * m).sum(axis=1))[:, None]
+    want = np.sqrt((((qn[:, None, :] - tn[None, :, :]) ** 2) * m).sum(axis=2))
+    pairwise_err = float((np.abs(got - want) - 2e-4 * np.abs(want)).max())
+    if project_err > 1e-6 or pairwise_err > 1e-5:
+        raise AssertionError(f"sharded products off float64: {project_err}, {pairwise_err}")
+    return dict(layout=mesh.shape, project_excess=project_err, pairwise_excess=pairwise_err)
+
+
+def run_ranks(workdir: str, world: int, backend: str, timeout: float = 600.0) -> list:
+    """``world`` processes of :func:`sharded_rank` on the card; each
+    rank's log in ``workdir``.  Every process is stopped before it returns;
+    a rank that fails fails the phase, with the tail of its log."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(workdir, f"rank{r}.log"), "w"))
+            # the host's cores shared out among the ranks, as torchrun
+            # limits each rank's threads
+            env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // world)))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r), str(world),
+                 str(port), workdir, backend],
+                stdout=logs[-1], stderr=subprocess.STDOUT, cwd=REPO, env=env))
+        deadline = time.time() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"phase 8 rank {r} of {world} ({backend}) failed "
+                                 f"({p.returncode}):\n{tail}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_sharded(lk: dict, batches, card: str) -> dict:
+    """Phase 7's k = 16 table trained and served over 4 gloo ranks on the
+    one card (NCCL refuses two ranks on one card), then over 1 NCCL rank
+    whose all-reduce runs on the card.  The kernels were built by this
+    process first; the ranks load the same library.  Returns the launches
+    of the main path (every rank's, summed, of the ``--kmer-parallel 4``
+    f32 serving) and what the ranks measured."""
+    import pickle
+    import shutil
+
+    workdir = tempfile.mkdtemp(prefix="kpop_smoke_sharded_")
+    try:
+        table = lk.pop("table")
+        wire = np.uint8 if table.max() < 256 else np.uint16
+        np.save(os.path.join(workdir, "table.npy"), table.astype(wire))
+        del table
+        np.save(os.path.join(workdir, "names.npy"), np.array(lk.pop("vocab_hex")))
+        np.save(os.path.join(workdir, "want0.npy"), lk.pop("want"))
+        np.save(os.path.join(workdir, "sv7.npy"), lk["sv"])
+        with open(os.path.join(workdir, "batches.pkl"), "wb") as f:
+            pickle.dump(batches, f)
+        result = {}
+        for world, backend in ((4, "gloo"), (1, "nccl")):
+            t0 = time.perf_counter()
+            ranks = run_ranks(workdir, world, backend)
+            wall = time.perf_counter() - t0
+            r0 = ranks[0]
+            log("sharded %s x%d: trained rank-sharded in %.3f s on rank 0 (%s), the %s wire, "
+                "rows %s; sv within %.3g of phase 7's fit (bound %g), the same bits on every "
+                "rank: %s; peak device memory of the fit by rank %s B; launches on rank 0 %s"
+                % (backend, world, r0["train_s"],
+                   ", ".join("%s %.4f s" % kv for kv in r0["train_phases"].items()),
+                   r0["train_wire"], [r["rows"] for r in ranks], r0["sv_rel"], STREAM_SV_RTOL,
+                   all(r["sv"] == r0["sv"] for r in ranks), [r["train_peak"] for r in ranks],
+                   json.dumps(r0["train_launches"])))
+            if not all(r["sv"] == r0["sv"] for r in ranks):
+                raise AssertionError(f"{backend} x{world}: the ranks' sv differ")
+            for i, res in enumerate(r0["serving"]):
+                peaks = [r["serving"][i]["serve_peak"] for r in ranks]
+                log("sharded %s x%d, %s %s: layout dp=%d kp=%d (all-reduce over %s%s); accuracy "
+                    "%.4f; %s; %.1f read sets/s on rank 0 (host encode, upload, the step and "
+                    "the gather of distances through the host); hand-off %.2f s, peak %d B; "
+                    "shard %d B of a %d B twister; serving peak by rank %s B (%.3f of the "
+                    "twister's bytes; bound: the shard, the vocabulary tables and a batch, %d "
+                    "B); main path launches summed over the ranks %s; on %s"
+                    % (backend, world, res["option"], res["dtype"], res["dp"], res["kp"],
+                       res["all_reduce"], ", through the host" if res["all_reduce"] == "gloo"
+                       else ", on the card", res["accuracy"],
+                       ("first batch vs host float64 chain max abs %.3g (bound %g)"
+                        % (res["host_err"], HOST_CHAIN_ATOL)) if "host_err" in res else
+                       ("off the f32 distances by %.3g x max(1, |x|) (bound %g)"
+                        % (res["bf16_err"], BF16_BOUND)),
+                       res["seqs_per_s"], res["handoff_s"], res["handoff_peak"],
+                       res["shard_bytes"], res["twister_bytes"], peaks,
+                       max(peaks) / res["twister_bytes"], res["peak_bound"],
+                       json.dumps(summed_launches(r["serving"][i]["launches"] for r in ranks)),
+                       card))
+                if "stages_ms" in res:
+                    log("sharded %s x%d, %s %s: a batch of %d on rank 0, ms by step (median; the "
+                        "all-reduce %s): %s"
+                        % (backend, world, res["option"], res["dtype"], res["batch_rows"],
+                           "gloo through the host" if res["all_reduce"] == "gloo" else "NCCL",
+                           json.dumps(res["stages_ms"])))
+            log("sharded %s x%d: project_sharded and pairwise_sharded on the card, layout %s, "
+                "within tests/test_sharded.py's tolerances of numpy float64 (largest excess "
+                "over rtol: %.3g and %.3g)" % (backend, world, r0["products"]["layout"],
+                                               r0["products"]["project_excess"],
+                                               r0["products"]["pairwise_excess"]))
+            log("sharded %s x%d: %.1f s with the ranks' start" % (backend, world, wall))
+            result[backend] = ranks
+        main = result["gloo"]
+        return dict(launches=summed_launches(r["serving"][0]["launches"] for r in main),
+                    ranks=result)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def summed_launches(per_rank) -> dict:
+    out: dict = {}
+    for launches in per_rank:
+        for k, v in launches.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def main() -> int:
@@ -2256,8 +2702,14 @@ def main() -> int:
     log("relatedness: %.1f s" % (time.perf_counter() - t0))
     # 7. large k
     t0 = time.perf_counter()
-    lk = phase_large_k(dev, sl.pop("genomes"), sl.pop("batches"), card)
+    phase7_batches = sl.pop("batches")
+    lk = phase_large_k(dev, sl.pop("genomes"), phase7_batches, card)
     log("large k: %.1f s (device CA fit %.3f s)" % (time.perf_counter() - t0, lk["train_s"]))
+    rows["count_spectra_rows"] = lk.pop("rows_row")
+    # 8. sharded
+    t0 = time.perf_counter()
+    sh = phase_sharded(lk, phase7_batches, card)
+    log("sharded: %.1f s" % (time.perf_counter() - t0))
     blocked = rows["ca_gram_streamed"]
     ran = (sl["stream_rows"], lk["stream_rows"])
     if ran != (blocked["block_rows"], blocked["wide_block_rows"]):
@@ -2270,7 +2722,8 @@ def main() -> int:
 
     launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"],
                 "large_k": lk["launches"], "train_streamed": sl["stream_launches"],
-                "slice_bf16": sl["bf16_launches"], "large_k_bf16": lk["bf16_launches"]}
+                "slice_bf16": sl["bf16_launches"], "large_k_bf16": lk["bf16_launches"],
+                "sharded": sh["launches"]}
     def entry_launches(r) -> dict:
         names = (r["launch"],) if isinstance(r["launch"], str) else r["launch"]
         return {n: launches[r["path"]][n] for n in names}
@@ -2298,4 +2751,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                              sys.argv[6]))
     sys.exit(main())

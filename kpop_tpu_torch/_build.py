@@ -16,6 +16,7 @@ current stream, enqueues its kernel, and returns ``cudaGetLastError()``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -46,9 +47,10 @@ _WIDE = (_I, _P, _I, _U, _U, _U, _U, _P)
 _SIGNATURES = {
     # a, b, metric, na, nb, out, workspace, Q, T, D, feature slices, stream
     "kpop_pairwise_dist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # codes, B, L, k, canonical, base, lut, V, index scratch, out, stream
-    "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P),
-    "kpop_count_spectra_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _P, _P),
+    # codes, B, L, k, canonical, base, lut, V, first row, rows, known
+    # (count each read set's known windows), index scratch, out, stream
+    "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P),
+    "kpop_count_spectra_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _I, _I, _I, _P, _P, _P),
     # codes, B, L, k, canonical, base, lut, V, twister, its row type (0
     # f32, 1 bf16), d, its row stride, normalize, slices, int workspace,
     # float workspace, out, stream
@@ -136,13 +138,19 @@ def _build(target: Path) -> None:
 
 
 def lib() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use.  Processes that share the
+    checkout (the ranks of one machine) build it one at a time, under a file
+    lock: the first builds, the others find it built."""
     global _lib
     with _lock:
         if _lib is None:
             target = library_path()
             if not target.exists():
-                _build(target)
+                _OUT.mkdir(parents=True, exist_ok=True)
+                with open(_OUT / ".build.lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not target.exists():
+                        _build(target)
             loaded = ctypes.CDLL(str(target))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(loaded, name)

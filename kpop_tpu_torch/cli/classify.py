@@ -9,9 +9,21 @@ the host in float64 over each full distance row
 one ``KPOP_PLATFORM`` names (:func:`kpop_tpu_torch.config.device`).
 Minkowski distances take the exact host path, as in the JAX tool.
 ``--dtype bf16`` stores the twister in bf16 on the device (every sum stays
-f32).  ``--kmer-parallel`` shards the twister over devices in the JAX tool
-only when it sees several; the port serves on one device, so, as the JAX
-tool does there, it serves as without the option.
+f32).
+
+Run by ``torchrun --nproc-per-node N`` (or with the ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` it sets), the tool
+serves over the N ranks, as the JAX tool serves over several devices
+(``kpop_tpu/cli/classify.py:277-334``): ``--kmer-parallel`` ranks (it must
+divide N), or with none as many as the twister needs to fit
+``KPOP_PARAMS_HBM_BYTES`` a rank (default 8 GiB;
+:func:`~..parallel.serving.choose_kmer_parallel`), share the twister's rows
+(:mod:`..parallel.serving`), the rest split each batch by rows with the
+parameters replicated.  The backend is ``nccl`` where each rank has a card
+of its own and ``gloo`` on the CPU or where ranks share a card
+(:func:`~..parallel.distributed.default_backend`).  Rank 0 alone writes the
+summaries.  On one rank ``--kmer-parallel`` has no effect, as in the JAX
+tool on one device.
 """
 
 from __future__ import annotations
@@ -39,10 +51,13 @@ from ..utils.progress import set_verbose
 
 from .. import __version__
 from ..config import device
+from ..parallel import distributed
+from ..parallel.mesh import Layout, all_gather_rows, make_mesh
 from ..ops.encode import encode_reads_host
 from ..ops.pipeline import (
     ClassifierParams,
     build_classifier_params,
+    check_whole_twister,
     count_spectra,
     distances_to_classes,
     project,
@@ -117,6 +132,7 @@ def pick_path(B: int, W: int, V: int, d: int) -> str:
 def dmat_step(params: ClassifierParams, base_codes: torch.Tensor, path: str):
     """``[B, L]`` base codes -> ``[B, C]`` distances to the classes, through
     the dense route (count, then the twister product) or the bag."""
+    check_whole_twister("dmat_step", params)
     if path == "bag":
         twisted = project_reads(params, base_codes)
     else:
@@ -125,50 +141,122 @@ def dmat_step(params: ClassifierParams, base_codes: torch.Tensor, path: str):
 
 
 class DeviceStep:
-    """Encode a batch on the host, upload it, run :func:`dmat_step` and
-    start the download, without waiting.
+    """Encode a batch on the host, upload this rank's rows of it, compute
+    their distances and start the download, without waiting.
 
-    On a card the result is copied without blocking into pinned host memory
-    and an event is recorded behind it; :meth:`materialize` waits on that
-    event alone.  ``tensor.cpu()`` would also wait for any batch dispatched
-    after this one, and the serve loop keeps one batch in flight so that the
-    host formats one batch while the card computes the next.
+    ``mesh`` is the rank layout (:class:`~..parallel.mesh.Layout`; one rank
+    by default): every rank encodes the whole batch, pads it with all
+    ``-1`` rows (empty spectra) to a multiple of the data axis and serves
+    its data group's rows; :meth:`materialize` gathers the groups' rows
+    through the host, in order.  ``dmat`` maps ``(params, codes)`` to the
+    ``[B, C]`` distances; by default :func:`dmat_step` over ``path``
+    (``"auto"`` is pinned by :func:`pick_path` on the first batch).
+
+    On a card the codes are uploaded from pinned memory without blocking,
+    and the result is copied without blocking into pinned host memory with
+    an event recorded behind it; :meth:`materialize` waits on that event
+    alone.  ``tensor.cpu()`` would also wait for any batch dispatched after
+    this one, and the serve loop keeps one batch in flight so that the host
+    formats one batch while the card computes the next.
     """
 
-    def __init__(self, params: ClassifierParams, path: str = "auto"):
+    def __init__(self, params: ClassifierParams, path: str = "auto", mesh: Layout | None = None,
+                 dmat=None):
         self.params = params
         self.path = path
+        self.mesh = Layout(dp=1, kp=1) if mesh is None else mesh
+        self.dmat = dmat
         self.device = params.twister.device
 
     def dispatch(self, seqs: list[str]):
-        p = self.params
+        p, mesh = self.params, self.mesh
         codes = encode_reads_host(seqs, protein=p.base != 4)
         n = codes.shape[0]
-        if codes.shape[1] < p.k:  # -1 pads: a break, counts nothing
-            codes = np.pad(
-                codes, ((0, 0), (0, p.k - codes.shape[1])), constant_values=-1
-            )
-        if self.path == "auto":  # pinned on the first (full) batch
+        pad_rows, pad_cols = (-n) % mesh.dp, max(0, p.k - codes.shape[1])
+        if pad_rows or pad_cols:  # -1 pads: a break, counts nothing
+            codes = np.pad(codes, ((0, pad_rows), (0, pad_cols)), constant_values=-1)
+        b0, b1 = mesh.rows(codes.shape[0], "data")
+        codes = np.ascontiguousarray(codes[b0:b1])
+        if self.dmat is None and self.path == "auto":  # pinned on the first (full) batch
             self.path = pick_path(
-                n, codes.shape[1] - p.k + 1, p.n_vocab, p.twister.shape[1]
+                codes.shape[0], codes.shape[1] - p.k + 1, p.n_vocab, p.twister.shape[1]
             )
         base_codes = torch.from_numpy(codes)
+        group = mesh.data_host
         if self.device.type == "cpu":
-            return dmat_step(p, base_codes, self.path), None, n
+            return self._dmat(base_codes), None, n, group
         base_codes = base_codes.pin_memory().to(self.device, non_blocking=True)
-        dmat = dmat_step(p, base_codes, self.path)
+        dmat = self._dmat(base_codes)
         host = torch.empty(dmat.shape, dtype=dmat.dtype, pin_memory=True)
         host.copy_(dmat, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done, n
+        return host, done, n, group
+
+    def _dmat(self, base_codes: torch.Tensor) -> torch.Tensor:
+        if self.dmat is not None:
+            return self.dmat(self.params, base_codes)
+        return dmat_step(self.params, base_codes, self.path)
 
     @staticmethod
     def materialize(handle) -> np.ndarray:
-        dmat, done, n = handle
+        dmat, done, n, group = handle
         if done is not None:
             done.synchronize()
+        rows = all_gather_rows(dmat, group)
+        dmat = rows[0] if len(rows) == 1 else torch.cat(rows)
         return dmat.numpy().astype(np.float64)[:n]
+
+
+def layout_kmer_parallel(world: int, kmer_parallel: int, twister_bytes: int) -> int:
+    """The ranks that share the twister's rows: 1 on one rank;
+    ``kmer_parallel`` (it must divide the rank count, else ParseError), or
+    with 0 the least that fits ``KPOP_PARAMS_HBM_BYTES`` a rank (default
+    8 GiB, :func:`~..parallel.serving.choose_kmer_parallel`)."""
+    from ..parallel.serving import choose_kmer_parallel
+
+    if world == 1:
+        return 1
+    if kmer_parallel:
+        if world % kmer_parallel:
+            raise ParseError(
+                f"--kmer-parallel {kmer_parallel} does not divide the rank count {world}"
+            )
+        return kmer_parallel
+    budget = int(os.environ.get("KPOP_PARAMS_HBM_BYTES", 8 << 30))
+    return choose_kmer_parallel(twister_bytes, world, budget)
+
+
+def serving_step(space, twister, class_coords, distance, metric, dtype, kmer_parallel: int,
+                 project_path: str, verbose: bool = False) -> DeviceStep:
+    """The layout choice of ``kpop_tpu/cli/classify.py:277-334`` over the
+    process group's ranks, and the step that serves it:
+    :func:`layout_kmer_parallel` ranks share the twister's rows
+    (:mod:`..parallel.serving`); with 1 the ranks split the batch, the
+    parameters replicated (one rank: the whole batch)."""
+    from ..parallel.serving import shard_classifier_params, sharded_dmat_fn
+
+    world = distributed.world_size()
+    twister_bytes = len(twister.kmer_names) * len(twister.dim_names) * dtype.itemsize
+    kp = layout_kmer_parallel(world, kmer_parallel, twister_bytes)
+    mesh = make_mesh(world, data_parallel=world // kp)
+    if verbose and world > 1 and distributed.is_primary():
+        sys.stderr.write(f"(KPopClassify): mesh {mesh.shape} (kmer-parallel {kp})\n")
+    if kp == 1:
+        params = build_classifier_params(space, twister, class_coords, distance=distance,
+                                         metric=metric, device=device(), dtype=dtype)
+        return DeviceStep(params, project_path, mesh)
+    if project_path == "bag" and distributed.is_primary():
+        sys.stderr.write(
+            "(KPopClassify): --project-path bag applies to the replicated layout; the "
+            "kmer-sharded path counts each rank's rows (parallel/serving.py)\n"
+        )
+    # the parameters on the host, then only this rank's rows to its card
+    host = build_classifier_params(space, twister, class_coords, distance=distance,
+                                   metric=metric, device="cpu", dtype=dtype)
+    params, v_global = shard_classifier_params(host, mesh, device())
+    del host
+    return DeviceStep(params, mesh=mesh, dmat=sharded_dmat_fn(mesh, v_global))
 
 
 def main(argv=None) -> int:
@@ -256,8 +344,8 @@ def main(argv=None) -> int:
            "memory and traffic of the one large tensor; all sums stay f32)"],
           set_dtype, "f32")
     p.opt(["--kmer-parallel"], "<non_negative_integer>",
-          ["shard the twister rows over this many devices (no effect on",
-           "one device, where the PyTorch port serves)"],
+          ["shard the twister rows over this many ranks (torchrun; no",
+           "effect on one rank)"],
           lambda a: state.update(kmer_parallel=a.get_int_non_neg()), "0")
     p.opt(["--project-path"], "'auto'|'dense'|'bag'",
           ["how reads become twisted coordinates: 'dense' counts the",
@@ -279,7 +367,19 @@ def main(argv=None) -> int:
 
     if not (state["twister"] and state["targets"] and state["inputs"]):
         raise ParseError("Options '-T', '-t' and an input are mandatory")
-    if state["kmer_parallel"] > 1 and state["verbose"]:
+    joined = distributed.initialize()  # the torchrun environment, if any
+    try:
+        return _classify(state)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _classify(state: dict) -> int:
+    """The tool's work once its options are parsed and the process group,
+    if any, joined."""
+    world = distributed.world_size()
+    if world == 1 and state["kmer_parallel"] > 1 and state["verbose"]:
         sys.stderr.write("(KPopClassify): --kmer-parallel %d has no effect on one device\n"
                          % state["kmer_parallel"])
 
@@ -295,16 +395,11 @@ def main(argv=None) -> int:
     # distance family uniformly, lib/Space.ml:150-205); bounded minkowski
     # stays on the exact host path
     if state["distance"].kind in ("euclidean", "cosine"):
-        params = build_classifier_params(
-            space,
-            twister,
-            np.asarray(targets.matrix.data, dtype=np.float64),
-            distance=state["distance"],
-            metric=state["metric"],
-            device=device(),
-            dtype=torch.bfloat16 if state["dtype"] == "bf16" else torch.float32,
-        )
-        step = DeviceStep(params, state["project_path"])
+        class_coords = np.asarray(targets.matrix.data, dtype=np.float64)
+        dtype = torch.bfloat16 if state["dtype"] == "bf16" else torch.float32
+        step = serving_step(space, twister, class_coords, state["distance"], state["metric"],
+                            dtype, state["kmer_parallel"], state["project_path"],
+                            state["verbose"])
         dispatch_seqs, materialize = step.dispatch, step.materialize
     else:
         from ..core.count import spectrum_of_sequences
@@ -341,7 +436,10 @@ def main(argv=None) -> int:
         def materialize(dmat):
             return dmat
 
+    # rank 0 alone writes the summaries
     out_path = with_ext(state["output"] or "/dev/stdout", SUMMARY_EXT)
+    if not distributed.is_primary():
+        out_path = os.devnull
     out = open_out(out_path)
     req_len = state["keep_at_most"]
     col_names = targets.matrix.row_names

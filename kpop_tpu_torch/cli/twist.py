@@ -19,6 +19,7 @@ from .. import __version__
 from ..core.counter_db import CounterDB
 from ..core.transforms import Transformation
 from ..core.twister import TwistParameters, twist_counter_db
+from ..parallel import distributed
 from ..utils.cli import ParseError, Parser
 from ..utils.progress import set_verbose
 
@@ -129,9 +130,18 @@ def main(argv=None) -> int:
         seed=state["seed"],
         n_dims=state["n_dims"],
     )
-    twister, twisted, twisted_kmers = twist_counter_db(
-        db, params, backend=state["backend"], verbose=state["verbose"]
-    )
+    # under torchrun the device CA fits over the ranks; rank 0 alone writes
+    joined = distributed.initialize()
+    primary = distributed.is_primary()
+    try:
+        twister, twisted, twisted_kmers = twist_counter_db(
+            db, params, backend=state["backend"], verbose=state["verbose"]
+        )
+    finally:
+        if joined:
+            distributed.shutdown()
+    if not primary:
+        return 0
     twister.to_binary(state["output"])
     twisted.to_binary(state["output"])
     if state["output_kmers"]:

@@ -6,7 +6,9 @@ Device
 (``kpop_tpu/config.py``).  ``cpu`` selects the CPU, where every kernel
 wrapper runs its plain PyTorch version.  Unset, ``cuda`` or ``gpu`` selects
 ``cuda:0`` and raises when no card is visible: the port never moves to the
-CPU on its own.
+CPU on its own.  A rank that ``torchrun`` started (``LOCAL_RANK``) takes
+card ``LOCAL_RANK`` modulo the cards it sees: one card a rank, or all the
+ranks on the one card.
 
 Precision
 ---------
@@ -53,4 +55,5 @@ def device() -> torch.device:
             "no CUDA device is visible; set KPOP_PLATFORM=cpu to run the "
             "port's plain PyTorch versions on the CPU"
         )
-    return torch.device("cuda:0")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return torch.device("cuda", local % torch.cuda.device_count())

@@ -346,13 +346,17 @@ def twist_counter_db(
             n_dims=params.n_dims,
         )
     elif backend in ("jax", "tpu", "sharded", "device"):
-        # device CA on the port's one device: the compact wire upload, the
-        # fused residual-Gram kernel, host float64 eigh, phi on the device
+        # device CA: the compact wire upload, the fused residual-Gram
+        # kernel, host float64 eigh, phi on the device; over the ranks of
+        # the process group when there is one, each rank's rows on its card
         # (parallel/sharded.py)
+        from ..parallel import distributed
+        from ..parallel.mesh import make_mesh
         from ..parallel.sharded import ca_fit_sharded
 
+        mesh = make_mesh() if distributed.world_size() > 1 else None
         coords, inertia, tw, sv = ca_fit_sharded(
-            table, n_dims=params.n_dims, col_weights=col_w, verbose=verbose,
+            table, n_dims=params.n_dims, col_weights=col_w, verbose=verbose, mesh=mesh,
         )
         res = ca_mod.CAResult(
             sample_coords=coords.astype(np.float64),

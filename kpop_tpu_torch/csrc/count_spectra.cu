@@ -43,6 +43,15 @@
 // that later read sets' LUT gathers overlapped earlier ones' stores,
 // measured slower on the card than the two launches.)
 //
+// A row range (kpop-classify-torch's k-mer-sharded serving,
+// parallel/serving.py): the lookup keeps only the known windows whose
+// vocabulary index lies in [row0, row0 + rows), shifted by row0, and the
+// slices count the rows cells of that range into a [B, rows] spectrum.
+// Where the caller asks (known), the lookup also counts every known window
+// of each read set into the tail of the scratch: the global normaliser of
+// a shard's projection.  The default range, 0 and V, without known, takes
+// the lookup with neither the range test nor that count (RANGED false).
+//
 // Exactness: the counts are integers, summed in shared memory in any
 // order, and converted once; a float32 holds every integer below 2^24
 // exactly (the wrapper raises for W >= 2^24), so the result equals the
@@ -82,43 +91,59 @@ static_assert(RUN == 8, "two 16-byte loads a thread");
 // uint64 code, the cuckoo hash or the sorted limbs; wide_lookup.cuh)
 // (at most 64 registers, four blocks an SM: the lookups' latency wants
 // the warps)
-template <class Find>
+template <class Find, bool RANGED>
 __global__ void __launch_bounds__(LOOKUP_THREADS, 4)
 count_lookup(const int8_t* __restrict__ codes, int L, int k, int canonical, int base,
-             const Find find, int V, int Wp, uint32_t* __restrict__ idx, int* __restrict__ n_idx) {
+             const Find find, int V, int row0, int rows, int Wp, uint32_t* __restrict__ idx,
+             int* __restrict__ n_idx, int* __restrict__ n_known) {
     __shared__ uint32_t known[LOOKUP_THREADS * RUN];
-    __shared__ int warp_at[LOOKUP_THREADS / 32], block_at, block_n;
+    __shared__ int warp_at[LOOKUP_THREADS / 32], warp_known[LOOKUP_THREADS / 32], block_at, block_n;
     const int b = blockIdx.y;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int w0 = (blockIdx.x * LOOKUP_THREADS + threadIdx.x) * RUN;
     int x[RUN];
     kpop::window_rows<RUN>(codes + (size_t)b * L, L, k, canonical, base, find, w0, L - k + 1, x);
-    int c = 0;
+    // a known window in the row range [row0, row0 + rows) is kept, shifted
+    // by row0; with n_known, every known window counts into the read set's
+    bool keep[RUN];
+    int c = 0, kn = 0;
 #pragma unroll
-    for (int r = 0; r < RUN; ++r) c += x[r] < V;
-    int incl = c;  // the warp's known windows up to this lane
+    for (int r = 0; r < RUN; ++r) {
+        keep[r] = x[r] < V && (!RANGED || (uint32_t)(x[r] - row0) < (uint32_t)rows);
+        c += keep[r];
+        kn += x[r] < V;
+    }
+    const bool count_known = RANGED && n_known;
+    int incl = c;  // the warp's kept windows up to this lane
     for (int o = 1; o < 32; o <<= 1) {
         const int y = __shfl_up_sync(FULL, incl, o);
         if (lane >= o) incl += y;
     }
+    if (count_known) {
+        kn = __reduce_add_sync(FULL, kn);
+        if (lane == 0) warp_known[warp] = kn;
+    }
     if (lane == 31) warp_at[warp] = incl;
     __syncthreads();
-    // the block's known windows: one place claimed in the row, one atomic
+    // the block's kept windows: one place claimed in the row, one atomic;
+    // its known windows, one more where they are counted
     if (threadIdx.x == 0) {
-        int run = 0;
+        int run = 0, all = 0;
         for (int i = 0; i < LOOKUP_THREADS / 32; ++i) {
             const int t = warp_at[i];
             warp_at[i] = run;
             run += t;
+            if (count_known) all += warp_known[i];
         }
         block_n = run;
         block_at = run ? atomicAdd(n_idx + b, run) : 0;
+        if (all) atomicAdd(n_known + b, all);
     }
     __syncthreads();
     int at = warp_at[warp] + incl - c;
 #pragma unroll
     for (int r = 0; r < RUN; ++r)
-        if (x[r] < V) known[at++] = (uint32_t)x[r];
+        if (keep[r]) known[at++] = (uint32_t)(RANGED ? x[r] - row0 : x[r]);
     __syncthreads();
     // then out in order, a warp's stores one 128-byte line
     uint32_t* row = idx + (size_t)b * Wp + block_at;
@@ -228,7 +253,7 @@ __device__ void count_slice(const uint32_t* __restrict__ idx_row, int n_row, int
 template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 count_slices(const uint32_t* __restrict__ idx, const int* __restrict__ n_idx, int B, int Wp,
-             int V, int slices, float* __restrict__ out) {
+             int rows, int slices, float* __restrict__ out) {
     extern __shared__ __align__(16) uint32_t cnt[];
     constexpr int CELLS = WIDE ? SLICE_BYTES / 4 : SLICE_BYTES / 2;
     for (int i = threadIdx.x; i < (SLICE_BYTES + PAD_BYTES) / 16; i += THREADS)
@@ -239,32 +264,41 @@ count_slices(const uint32_t* __restrict__ idx, const int* __restrict__ n_idx, in
     for (long long t = tasks * blockIdx.x / gridDim.x; t < t1; ++t) {
         const int s = (int)(t / B), b = (int)(t % B);
         const int lo = s * CELLS;
-        count_slice<WIDE>(idx + (size_t)b * Wp, n_idx[b], lo, min(CELLS, V - lo), cnt,
-                          out + (size_t)b * V + lo);
+        count_slice<WIDE>(idx + (size_t)b * Wp, n_idx[b], lo, min(CELLS, rows - lo), cnt,
+                          out + (size_t)b * rows + lo);
     }
 }
 
-// Both launches for any lookup; idx: int32 scratch of B * Wp + B entries
-// (the indices, then each read set's count), Wp = L - k + 1 rounded up to
-// RUN
+// Both launches for any lookup, into the [B, rows] spectra of the
+// vocabulary rows [row0, row0 + rows); idx: int32 scratch of B * Wp + 2 B
+// entries (the kept indices, then each read set's count of them, then,
+// with known, its count of all known windows), Wp = L - k + 1 rounded up
+// to RUN
 template <class Find>
 int count_spectra(const int8_t* codes, int B, int L, int k, int canonical, int base,
-                  const Find& find, int V, uint32_t* idx, float* out, void* stream) {
+                  const Find& find, int V, int row0, int rows, int known, uint32_t* idx,
+                  float* out, void* stream) {
     const int W = L - k + 1;
-    if (B <= 0 || V <= 0) return (int)cudaGetLastError();
+    if (row0 < 0 || rows < 0) return (int)cudaErrorInvalidValue;
+    if (B <= 0 || V <= 0 || rows == 0) return (int)cudaGetLastError();
     const int Wp = W > 0 ? (W + RUN - 1) / RUN * RUN : 0;
     int* n_idx = reinterpret_cast<int*>(idx + (size_t)B * Wp);
     cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t err = cudaMemsetAsync(n_idx, 0, (size_t)B * sizeof(int), st);
+    cudaError_t err = cudaMemsetAsync(n_idx, 0, (size_t)2 * B * sizeof(int), st);
     if (err != cudaSuccess) return (int)err;
     if (Wp > 0) {
         const dim3 grid((Wp / RUN + LOOKUP_THREADS - 1) / LOOKUP_THREADS, B);
-        count_lookup<Find><<<grid, LOOKUP_THREADS, 0, st>>>(codes, L, k, canonical, base, find, V,
-                                                            Wp, idx, n_idx);
+        if (row0 != 0 || rows != V || known)
+            count_lookup<Find, true><<<grid, LOOKUP_THREADS, 0, st>>>(
+                codes, L, k, canonical, base, find, V, row0, rows, Wp, idx, n_idx,
+                known ? n_idx + B : nullptr);
+        else
+            count_lookup<Find, false><<<grid, LOOKUP_THREADS, 0, st>>>(
+                codes, L, k, canonical, base, find, V, row0, rows, Wp, idx, n_idx, nullptr);
     }
     const bool wide = W > NARROW_MAX;
     const int cells = wide ? SLICE_BYTES / 4 : SLICE_BYTES / 2;
-    const int slices = (V + cells - 1) / cells;
+    const int slices = (rows + cells - 1) / cells;
     auto kernel = wide ? count_slices<true> : count_slices<false>;
     const int smem = SLICE_BYTES + PAD_BYTES;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -278,18 +312,20 @@ int count_spectra(const int8_t* codes, int B, int L, int k, int canonical, int b
     if (err != cudaSuccess) return (int)err;
     const long long tasks = (long long)slices * B;
     const int blocks = (int)(tasks < (long long)max(1, per_sm) * sms ? tasks : (long long)max(1, per_sm) * sms);
-    kernel<<<blocks, THREADS, smem, st>>>(idx, n_idx, B, Wp, V, slices, out);
+    kernel<<<blocks, THREADS, smem, st>>>(idx, n_idx, B, Wp, rows, slices, out);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// k up to lut_k_max: lut is the dense [base^k + 1] table
+// k up to lut_k_max: lut is the dense [base^k + 1] table; the spectra of
+// the vocabulary rows [row0, row0 + rows) (0 and V: all of it), and with
+// known (nonzero) each read set's count of all its known windows
 extern "C" int kpop_count_spectra(const int8_t* codes, int B, int L, int k, int canonical,
-                                  int base, const int32_t* lut, int V, uint32_t* idx,
-                                  float* out, void* stream) {
-    return count_spectra(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V, idx, out,
-                         stream);
+                                  int base, const int32_t* lut, int V, int row0, int rows,
+                                  int known, uint32_t* idx, float* out, void* stream) {
+    return count_spectra(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V, row0, rows,
+                         known, idx, out, stream);
 }
 
 // larger k: the cuckoo hash's probe layout (ops/cuckoo.py::probe_table) of
@@ -298,12 +334,12 @@ extern "C" int kpop_count_spectra(const int8_t* codes, int B, int L, int k, int 
 extern "C" int kpop_count_spectra_wide(const int8_t* codes, int B, int L, int k, int canonical,
                                        int base, int k_lo, const int32_t* probe, int slots,
                                        uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
-                                       const int32_t* limbs, int V, uint32_t* idx, float* out,
-                                       void* stream) {
+                                       const int32_t* limbs, int V, int row0, int rows,
+                                       int known, uint32_t* idx, float* out, void* stream) {
     if (k > 32 || !probe == !limbs || (probe && (slots & (slots - 1))) ||
         reinterpret_cast<uintptr_t>(probe) % 16 || reinterpret_cast<uintptr_t>(limbs) % 8)
         return (int)cudaErrorInvalidValue;
     return count_spectra(codes, B, L, k, canonical, base,
                          kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V), V,
-                         idx, out, stream);
+                         row0, rows, known, idx, out, stream);
 }

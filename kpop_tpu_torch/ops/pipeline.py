@@ -111,6 +111,11 @@ class ClassifierParams(nn.Module):
     bytes a slot of each table, 75.5 MB at S = 2^21), an attribute and not a
     buffer, since the JAX package's parameters have no such array; the
     sorted limbs likewise as ``vocab_limbs [V, 2]`` {hi, lo}.
+
+    A rank of k-mer-sharded serving (:mod:`..parallel.serving`) holds only
+    the twister rows ``[row0, row0 + twister.shape[0])`` of a vocabulary of
+    ``vocab_size`` rows, with the whole vocabulary's tables; ``n_vocab`` is
+    then ``vocab_size``, the index of a miss.
     """
 
     def __init__(
@@ -128,6 +133,8 @@ class ClassifierParams(nn.Module):
         vocab_lo: torch.Tensor | None = None,
         cuckoo: torch.Tensor | None = None,
         cuckoo_seeds: tuple = (),
+        vocab_size: int | None = None,
+        row0: int = 0,
     ):
         super().__init__()
         if twister.dtype not in BAG_ROW_TYPES:
@@ -140,7 +147,7 @@ class ClassifierParams(nn.Module):
                 f"device classification supports euclidean/cosine, "
                 f"not {distance_kind!r}"
             )
-        V = twister.shape[0]
+        V = twister.shape[0] if vocab_size is None else int(vocab_size)
         if k <= lut_k_max(base):
             if vocab_lut is None or vocab_lut.shape != (base**k + 1,) or vocab_lut.dtype != torch.int32:
                 raise ValueError(
@@ -176,10 +183,14 @@ class ClassifierParams(nn.Module):
         self.canonical = canonical
         self.base = base
         self.distance_kind = distance_kind
+        self.vocab_size = V
+        self.row0 = int(row0)
 
     @property
     def n_vocab(self) -> int:
-        return self.twister.shape[0]
+        """Rows of the whole vocabulary: the twister's, unless it holds a
+        range of them."""
+        return self.vocab_size
 
 
 #: the arrays of the JAX package's ClassifierParams that the port carries
@@ -248,25 +259,43 @@ def _params(space, kmer_names, twister, inertia, class_coords, distance, metric,
     """:func:`params_around_twister` on ``device``: the twister's rows put
     in order and cast to ``dtype`` where the twister lies, then moved to
     ``device``."""
-    distance = distance or Distance.of_string("euclidean")
-    metric = metric or Metric.of_string("powers(1,1,2)")
     if dtype not in BAG_ROW_TYPES:
         raise NotImplementedError(f"{dtype} twisters: f32 or bf16")
-    kmer_codes = np.array([space.hex_to_code(h) for h in kmer_names], dtype=np.uint64)
-    V = len(kmer_codes)
-    if space.k <= lut_k_max(space.base):
-        lut = np.full(space.n_kmers + 1, V, dtype=np.int32)
-        lut[kmer_codes.astype(np.int64)] = np.arange(V, dtype=np.int32)
-        vocab = dict(vocab_lut=torch.as_tensor(lut, device=device))
-    else:
-        vocab, order = wide_vocab(space, kmer_codes)
-        vocab = {name: torch.as_tensor(a, device=device) if isinstance(a, np.ndarray) else a
-                 for name, a in vocab.items()}
+    vocab, order = serving_vocab(space, kmer_names)
+    if order is not None:
         twister = twister.index_select(0, torch.as_tensor(order, device=twister.device))
     if dtype == torch.bfloat16:
         twister = bf16_rows(twister, device)
     else:
         twister = twister.to(dtype=dtype).to(device)
+    return assemble_params(space, vocab, twister, inertia, class_coords, distance, metric, device)
+
+
+def serving_vocab(space: KmerSpace, kmer_names: list[str]) -> tuple[dict, np.ndarray | None]:
+    """The vocabulary of the hex k-mer labels as host arrays: ``vocab_lut``
+    up to k = :func:`~.encode.lut_k_max` (the twister's rows in the labels'
+    order: returns None for the order), else :func:`wide_vocab`'s tables
+    and the order the twister's rows take."""
+    kmer_codes = np.array([space.hex_to_code(h) for h in kmer_names], dtype=np.uint64)
+    V = len(kmer_codes)
+    if space.k <= lut_k_max(space.base):
+        lut = np.full(space.n_kmers + 1, V, dtype=np.int32)
+        lut[kmer_codes.astype(np.int64)] = np.arange(V, dtype=np.int32)
+        return dict(vocab_lut=lut), None
+    return wide_vocab(space, kmer_codes)
+
+
+def assemble_params(space: KmerSpace, vocab: dict, twister: torch.Tensor, inertia, class_coords,
+                    distance: Distance | None = None, metric: Metric | None = None,
+                    device=None, **extra) -> ClassifierParams:
+    """:class:`ClassifierParams` of a twister already in its rows' order,
+    dtype and device, with the host ``vocab`` of :func:`serving_vocab`
+    moved to ``device``: the metric from the inertia (lib/Twister.ml:
+    208-209) and the class norms.  ``extra`` goes to the constructor."""
+    distance = distance or Distance.of_string("euclidean")
+    metric = metric or Metric.of_string("powers(1,1,2)")
+    vocab = {name: torch.as_tensor(a, device=device) if isinstance(a, np.ndarray) else a
+             for name, a in vocab.items()}
     mvec = metric.compute(np.asarray(inertia, dtype=np.float64))
     cls_norms = normalizations(distance, mvec, class_coords)
 
@@ -283,6 +312,7 @@ def _params(space, kmer_names, twister, inertia, class_coords, distance, metric,
         base=space.base,
         distance_kind=distance.kind,
         **vocab,
+        **extra,
     )
 
 
@@ -402,18 +432,33 @@ def _check_codes(name: str, params: ClassifierParams, base_codes: torch.Tensor):
     return B, L
 
 
-def count_spectra_ref(params: ClassifierParams, base_codes: torch.Tensor) -> torch.Tensor:
+def _row_range(params: ClassifierParams, row0: int, rows: int | None) -> int:
+    """``rows`` of a count's row range, checked (None: to the vocabulary's
+    end)."""
+    V = params.n_vocab
+    rows = V - row0 if rows is None else int(rows)
+    if row0 < 0 or rows < 0 or row0 + rows > _INT_MAX:
+        raise ValueError(f"count_spectra: bad row range row0={row0}, rows={rows} (V={V})")
+    return rows
+
+
+def count_spectra_ref(params: ClassifierParams, base_codes: torch.Tensor, row0: int = 0,
+                      rows: int | None = None, known: bool = False):
     """Plain PyTorch version of :func:`count_spectra`.  A read that repeats
     a k-mer counts it every time: ``index_put_(accumulate=True)``, not
     ``out[idx] += 1``, which would collapse duplicates."""
     V = params.n_vocab
+    rows = _row_range(params, row0, rows)
     idx = vocab_lookup(params, base_codes)
     B, W = idx.shape
-    rows = torch.arange(B, device=idx.device)[:, None].expand(B, W)
-    known = idx < V
-    out = torch.zeros((B, V), dtype=torch.float32, device=idx.device)
-    ones = torch.ones(int(known.sum()), dtype=torch.float32, device=idx.device)
-    out.index_put_((rows[known], idx[known].long()), ones, accumulate=True)
+    at = torch.arange(B, device=idx.device)[:, None].expand(B, W)
+    hit = idx < V
+    kept = hit & (idx >= row0) & (idx < row0 + rows)
+    out = torch.zeros((B, rows), dtype=torch.float32, device=idx.device)
+    ones = torch.ones(int(kept.sum()), dtype=torch.float32, device=idx.device)
+    out.index_put_((at[kept], idx[kept].long() - row0), ones, accumulate=True)
+    if known:
+        return out, hit.sum(dim=1, dtype=torch.int32)
     return out
 
 
@@ -439,10 +484,11 @@ def count_tasks(slices: int, B: int, blocks: int) -> list[range]:
 def count_scratch_ints(B: int, L: int, k: int) -> int:
     """The count kernel's int32 scratch: each read set's row of ``Wp`` (its
     windows rounded up to ``COUNT_RUN``), where the lookup appends the
-    vocabulary indices of the known windows, then each read set's count of
-    them."""
+    vocabulary indices of the known windows in the row range (less the
+    range's first row), then each read set's count of them, then its count
+    of all known windows."""
     W = L - k + 1
-    return B * (-(-W // COUNT_RUN) * COUNT_RUN) + B
+    return B * (-(-W // COUNT_RUN) * COUNT_RUN) + 2 * B
 
 
 def row_groups(B: int, rows: int) -> list[tuple[int, int]]:
@@ -470,12 +516,20 @@ def bag_row_groups(B: int, W: int) -> list[tuple[int, int]]:
     return [(0, B)] if rows >= BAG_GROUP else row_groups(B, rows)
 
 
-def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.Tensor:
+def count_spectra(params: ClassifierParams, base_codes: torch.Tensor, row0: int = 0,
+                  rows: int | None = None, known: bool = False):
     """``[B, L]`` int8 base codes -> vocabulary-aligned spectra ``[B, V]``
     f32.  Counts are exact (integers below 2^24 per cell).  Read sets with
     2^24 windows or more raise: there the JAX package's f32 count of known
     windows is not exact either.  A batch above :data:`COUNT_MAX_ROWS`
     read sets is counted in groups (:func:`count_row_groups`).
+
+    ``row0`` and ``rows`` count only the vocabulary rows ``[row0, row0 +
+    rows)`` into ``[B, rows]`` spectra (a k-mer-sharded rank's,
+    :mod:`..parallel.serving`; rows past the vocabulary count nothing);
+    the default is the whole vocabulary.  With ``known`` it returns
+    ``(spectra, [B] int32 counts of each read set's known windows)``: all
+    of them, in the range or not, the normaliser of a shard's projection.
 
     On a card, ``csrc/count_spectra.cu``: each window is looked up once
     and the known ones' indices appended to an int32 scratch
@@ -485,7 +539,8 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
     the output needs no zeroing."""
     B, L = _check_codes("count_spectra", params, base_codes)
     if base_codes.device.type == "cpu":
-        return count_spectra_ref(params, base_codes)
+        return count_spectra_ref(params, base_codes, row0, rows, known)
+    rows = _row_range(params, row0, rows)
     suffix, vocab = vocab_args("count_spectra", params, base_codes)
     W = L - params.k + 1
     if W >= 1 << 24:
@@ -495,17 +550,23 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor) -> torch.T
     V = params.n_vocab
     dev = base_codes.device
     groups = count_row_groups(B)
-    rows = max(b1 - b0 for b0, b1 in groups)
-    scratch = torch.empty(count_scratch_ints(rows, L, params.k), dtype=torch.int32, device=dev)
-    out = torch.empty((B, V), dtype=torch.float32, device=dev)
+    Bg = max(b1 - b0 for b0, b1 in groups)
+    scratch = torch.empty(count_scratch_ints(Bg, L, params.k), dtype=torch.int32, device=dev)
+    out = torch.empty((B, rows), dtype=torch.float32, device=dev)
+    n_known = torch.empty(B, dtype=torch.int32, device=dev) if known else None
     codes_p, out_p = base_codes.data_ptr(), out.data_ptr()
     for b0, b1 in groups:  # each group from and into its rows (int8 codes, f32 out)
         _build.launch(
             "kpop_count_spectra" + suffix,
             codes_p + b0 * L, b1 - b0, L, params.k, int(params.canonical),
-            params.base, *vocab, V, scratch.data_ptr(), out_p + 4 * b0 * V,
+            params.base, *vocab, V, row0, rows, int(known), scratch.data_ptr(),
+            out_p + 4 * b0 * rows,
         )
-    return out
+        if known:  # a launch of n read sets: its n rows, n kept counts, n known counts
+            n = b1 - b0
+            at = count_scratch_ints(n, L, params.k) - n
+            n_known[b0:b1] = scratch[at : at + n]
+    return (out, n_known) if known else out
 
 
 def vocab_args(name: str, params: ClassifierParams, base_codes: torch.Tensor):
@@ -527,6 +588,17 @@ def vocab_args(name: str, params: ClassifierParams, base_codes: torch.Tensor):
     return "_wide", (k_lo, None, 0, 0, 0, 0, 0, params.vocab_limbs.data_ptr())
 
 
+def check_whole_twister(name: str, params: ClassifierParams) -> None:
+    """Raise unless ``params`` hold the whole twister: a rank's shard of
+    k-mer-sharded serving is projected by :mod:`..parallel.serving`."""
+    if params.row0 != 0 or params.twister.shape[0] != params.n_vocab:
+        raise ValueError(
+            f"{name}: the parameters hold twister rows [{params.row0}, "
+            f"{params.row0 + params.twister.shape[0]}) of {params.n_vocab}, a shard of "
+            "k-mer-sharded serving (parallel/serving.py::sharded_dmat_fn)"
+        )
+
+
 def project_reads_ref(
     params: ClassifierParams,
     base_codes: torch.Tensor,
@@ -536,6 +608,7 @@ def project_reads_ref(
     """Plain PyTorch version of :func:`project_reads`: gather-sum of twister
     rows over chunks of ``chunk`` windows (the JAX ``lax.scan``), each row
     widened to f32 and summed in f32."""
+    check_whole_twister("project_reads", params)
     V = params.n_vocab
     idx = vocab_lookup(params, base_codes)
     B, W = idx.shape
@@ -610,6 +683,7 @@ def project_reads(
     windows is not exact there either); read sets of more than 8,388,607
     windows are taken in smaller groups (:func:`bag_row_groups`)."""
     B, L = _check_codes("project_reads", params, base_codes)
+    check_whole_twister("project_reads", params)
     if base_codes.device.type == "cpu":
         return project_reads_ref(params, base_codes, normalize)
     suffix, vocab = vocab_args("project_reads", params, base_codes)
@@ -659,6 +733,7 @@ def project(
     package's ``astype`` does (counts above 256 round), and multiplied
     with an f32 output (:func:`bf16_product`); the row sums are taken on
     the f32 spectrum."""
+    check_whole_twister("project", params)
     if params.twister.dtype == torch.bfloat16:
         out = bf16_product(spectra.to(torch.bfloat16), params.twister)
     else:

@@ -1,1 +1,2 @@
-"""Device training of the PyTorch port: the CA fit on one device."""
+"""Training and serving over ranks: the device CA (one device or the ranks
+of a layout), k-mer-sharded serving, sharded checkpoints and input."""

@@ -1,8 +1,27 @@
-"""CA training on one device: the counterpart of
-``kpop_tpu/parallel/sharded.py::ca_fit_sharded``.
+"""CA training over the ranks of a layout, and the sharded products: the
+counterpart of ``kpop_tpu/parallel/sharded.py``.
 
-:func:`ca_fit_sharded` keeps the JAX function's signature, less the mesh
-and plus an explicit device, and its returns.  The TPU has no float64, so
+:func:`ca_fit_sharded` keeps the JAX function's arguments and returns, the
+mesh (a :class:`~.mesh.Layout`, :func:`~.mesh.make_mesh`) as a keyword
+and an explicit device added.  Without a mesh it fits on one device.  Over
+a mesh of several ranks, as each JAX process does:
+
+- every rank holds the host table and computes the masses by the same
+  float64 code;
+- each rank uploads only its rows of the k-mer axis, split over all the
+  ranks (the JAX ``P((DATA_AXIS, KMER_AXIS), None)``), and builds their
+  Gram with ``csrc/ca_gram.cu``, resident or streamed by its own budget;
+- each rank's float64 ``[ns, ns]`` Gram is gathered on the host and the
+  Grams are summed in rank order, so every rank, and every run, gets the
+  same bits; every rank runs the host ``eigh``;
+- each rank makes phi for its own rows: with ``phi="device"`` they stay
+  on its card (a :class:`~.mesh.ShardedRows`), with ``phi="host"`` every
+  rank gathers the whole host twister.
+
+:func:`project_sharded` and :func:`pairwise_sharded` are the JAX
+functions of those names over the ranks.
+
+The TPU has no float64, so
 the JAX package rebuilds the standardized residual
 
     S[k, j] = x[k, j] alpha[k] beta[j] - u[k] v[j]
@@ -24,7 +43,8 @@ does what those functions compute in float64, without the limbs:
   (the JAX package brings phi to the host block by block too).
 
 ``precision="fast"`` is the JAX ``_ca_math``: everything on the device in
-f32, ``torch.linalg.eigh`` included.
+f32, ``torch.linalg.eigh`` included; over a mesh each rank takes its rows,
+and the total, the column sums and the Gram are all-reduced.
 
 A fit whose resident footprint exceeds the device budget
 (:func:`_hbm_budget`) streams (:func:`_ca_fit_streamed`, the counterpart of
@@ -43,6 +63,8 @@ import numpy as np
 import torch
 
 from ..ops import gram
+from ..ops import pairwise as pw
+from .mesh import Layout, ShardedRows, all_gather_rows, all_reduce
 
 #: set by the last dd-path ca_fit_sharded call: the wire type of the
 #: uploaded table, "u8"/"u16"/"f32" on the compact path, "f64" on the
@@ -88,17 +110,20 @@ class _PhaseTimer:
         self.t = now
 
 
-def _ca_math(table: torch.Tensor, n_dims: int, d_full: int):
+def _ca_math(table: torch.Tensor, n_dims: int, d_full: int, group=None):
     """The CA factorization of a ``[K, ns]`` f32 table, all on its device
-    (the JAX ``_ca_math``, the "fast" path)."""
-    total = table.sum()
+    (the JAX ``_ca_math``, the "fast" path).  With a process ``group``,
+    ``table`` is this rank's rows of the whole: the total, the column sums
+    and the Gram are summed over the group's ranks (the psums XLA inserts
+    over the JAX mesh), and phi comes back for these rows."""
+    total = all_reduce(table.sum(), group)
     P_ = table / total
     r = P_.sum(dim=1)
-    c = P_.sum(dim=0)
+    c = all_reduce(P_.sum(dim=0), group)
     r_safe = torch.where(r > 0, r, torch.ones_like(r))
     c_safe = torch.where(c > 0, c, torch.ones_like(c))
     S = (P_ - r[:, None] * c[None, :]) / torch.sqrt(r_safe[:, None] * c_safe[None, :])
-    evals, evecs = torch.linalg.eigh(S.T @ S)  # ascending
+    evals, evecs = torch.linalg.eigh(all_reduce(S.T @ S, group))  # ascending
     evals, evecs = evals.flip(0), evecs.flip(1)
     total_in = torch.clamp(evals[:d_full], min=0.0).sum()
     evals = torch.clamp(evals[:n_dims], min=0.0)
@@ -249,21 +274,27 @@ def ca_fit_sharded(
     hbm_bytes: int | None = None,
     verbose: bool = False,
     device: torch.device | str | None = None,
+    mesh: Layout | None = None,
     _stream_probe=None,
 ):
-    """Fit CA on one device.
+    """Fit CA on one device, or over the ranks of ``mesh`` (see the module
+    docstring; every rank calls it with the same table and arguments).
 
     ``table``: host [n_kmers, n_samples].  Returns (sample_coords, inertia,
     twister, sv): host arrays, except that with ``phi="device"`` the twister
     comes back as the device-resident ``[K, d]`` float32 tensor (k-mers x
     dims, table row order) instead of the host ``[d, K]`` transpose, and
-    feeds serving (``ClassifierParams.twister``) without a download.
+    feeds serving (``ClassifierParams.twister``) without a download; with
+    a ``mesh``, as the :class:`~.mesh.ShardedRows` of this rank's rows
+    (``mesh.rows(K)``).
 
     ``precision="dd"`` (default): float64 CA factors (see the module
     docstring); :data:`LAST_DD_UPLOAD` records the wire type and
     :data:`LAST_CA_PHASES` the wall time of each phase.  ``block_bytes``
     bounds each float64 row block of S in the phi product.
-    ``precision="fast"``: everything on the device in float32.
+    ``precision="fast"``: everything on the device in float32; over a
+    mesh, each rank's rows, their sums and Gram all-reduced (f32 sums in
+    the backend's order: not bit-stable across backends).
 
     ``col_weights``: optional per-column multipliers applied to the table
     (KPopTwist's per-spectrum normalization), folded into the
@@ -291,13 +322,18 @@ def ca_fit_sharded(
     d = d_full if n_dims is None else max(1, min(n_dims, d_full))
     if phi not in ("host", "device"):
         raise ValueError(f"unknown phi placement {phi!r}")
+    # this rank's rows of the k-mer axis: all of them without a mesh
+    i0, i1 = (0, nk) if mesh is None else mesh.rows(nk)
     if precision == "fast":
+        rows = np.asarray(table)[i0:i1]
         if col_weights is not None:
-            table = np.asarray(table) * np.asarray(col_weights)[None, :]
-        xs = torch.as_tensor(np.ascontiguousarray(table, dtype=np.float32), device=device)
-        coords, inertia, phi_d, sv = _ca_math(xs, d, d_full)
+            rows = rows * np.asarray(col_weights)[None, :]
+        xs = torch.as_tensor(np.ascontiguousarray(rows, dtype=np.float32), device=device)
+        coords, inertia, phi_d, sv = _ca_math(xs, d, d_full,
+                                              None if mesh is None else mesh.world_group)
         tw = phi_d if phi == "device" else phi_d.cpu().numpy().T
-        return coords.cpu().numpy(), inertia.cpu().numpy(), tw, sv.cpu().numpy()
+        fit = coords.cpu().numpy(), inertia.cpu().numpy(), tw, sv.cpu().numpy()
+        return fit if mesh is None else _rank_fit(fit, mesh, phi, i0, nk)
     if precision != "dd":
         raise ValueError(f"unknown CA precision {precision!r}")
     global LAST_DD_UPLOAD, LAST_CA_STREAM
@@ -318,20 +354,62 @@ def ca_fit_sharded(
         compact, kind = N, "f64"
     else:
         alpha = rs
+    compact, alpha, u, rs = (a[i0:i1] for a in (compact, alpha, u, rs))
+    nl = i1 - i0
     # phi's f64 row blocks of S, at most block_bytes each
     step = max(1, block_bytes // max(1, ns * 8))
     budget = hbm_bytes if hbm_bytes is not None else _hbm_budget(device)
     # the wire table; S and its outer product, the phi block being made and
     # the one in copy (or being written into the twister); the f32 twister
-    resident = nk * ns * WIRE_BYTES[kind] + min(step, nk) * (2 * ns + 2 * d) * 8
+    resident = nl * ns * WIRE_BYTES[kind] + min(step, nl) * (2 * ns + 2 * d) * 8
     if phi == "device":
-        resident += nk * d * 4
+        resident += nl * d * 4
     LAST_DD_UPLOAD = kind
     if budget and resident > budget:
-        return _ca_fit_streamed(
+        fit = _ca_fit_streamed(
             compact, kind, d, d_full, (alpha, u, beta, v, rs, c_safe), phi, budget, step,
-            device, tm, _stream_probe,
+            device, tm, mesh, _stream_probe,
         )
+    else:
+        fit = _ca_fit_resident(compact, kind, d, d_full, (alpha, u, beta, v, rs, c_safe), phi,
+                               step, device, tm, mesh)
+    return fit if mesh is None else _rank_fit(fit, mesh, phi, i0, nk)
+
+
+def _rank_fit(fit: tuple, mesh: Layout, phi: str, i0: int, nk: int) -> tuple:
+    """A rank's fit of its rows from ``i0`` of ``nk``, as
+    :func:`ca_fit_sharded` returns it over ``mesh``: with ``phi="device"``
+    the twister's rows as :class:`~.mesh.ShardedRows`, else the whole host
+    twister, gathered from every rank."""
+    coords, inertia, tw, sv = fit
+    if phi == "device":
+        return coords, inertia, ShardedRows(tw, i0, nk), sv
+    rows = all_gather_rows(torch.from_numpy(np.ascontiguousarray(tw.T)), mesh.world_host)
+    return coords, inertia, torch.cat(rows).numpy().T, sv
+
+
+def _sum_over_ranks(G: np.ndarray, mesh: Layout | None) -> np.ndarray:
+    """The float64 Grams of every rank's rows, gathered on the host and
+    summed in rank order: the same bits on every rank and in every run."""
+    if mesh is None or mesh.world == 1:
+        return G
+    parts = all_gather_rows(torch.from_numpy(np.ascontiguousarray(G)), mesh.world_host)
+    total = parts[0].numpy().copy()
+    for p in parts[1:]:
+        total += p.numpy()
+    return total
+
+
+def _ca_fit_resident(compact, kind: str, d: int, d_full: int, vectors: tuple, phi: str,
+                     step: int, device: torch.device, tm: _PhaseTimer, mesh: Layout | None):
+    """The fit of :func:`ca_fit_sharded` with its rows resident on the
+    device: the wire table ``compact`` (``kind``) and ``vectors`` (alpha, u
+    and rs of its rows, beta, v and c_safe) uploaded once, the Gram in one
+    pass (summed over the ranks of ``mesh``), phi in row blocks of at most
+    ``step`` rows.  Returns the twister of these rows: ``[rows, d]`` f32 on
+    the device with ``phi="device"``, else the host ``[d, rows]``."""
+    alpha, u, beta, v, rs, c_safe = vectors
+    nk, ns = compact.shape
 
     def up(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
@@ -339,7 +417,9 @@ def ca_fit_sharded(
     x = up(compact if kind != "f64" else np.asarray(compact, dtype=np.float64))
     alpha_d, u_d, beta_d, v_d = (up(np.asarray(a, np.float64)) for a in (alpha, u, beta, v))
     tm.mark("upload")
-    G = gram.residual_gram(x, alpha_d, u_d, beta_d, v_d).cpu().numpy()
+    G = (gram.residual_gram(x, alpha_d, u_d, beta_d, v_d).cpu().numpy() if nk
+         else np.zeros((ns, ns)))
+    G = _sum_over_ranks(G, mesh)
     if not np.isfinite(G).all():
         raise FloatingPointError("ca_fit_sharded: the Gram of the residual is not finite")
     tm.mark("gram")
@@ -487,7 +567,7 @@ class _BlockStream:
 
 def _ca_fit_streamed(wire_table, kind: str, d: int, d_full: int, vectors: tuple, phi: str,
                      budget: int, step: int, device: torch.device, tm: _PhaseTimer,
-                     on_block=None):
+                     mesh: Layout | None = None, on_block=None):
     """The CA fit of :func:`ca_fit_sharded` in row blocks, within
     ``budget`` bytes of device memory: the counterpart of the JAX
     ``_ca_fit_streamed``.
@@ -544,7 +624,7 @@ def _ca_fit_streamed(wire_table, kind: str, d: int, d_full: int, vectors: tuple,
         acc.add(x, a, uu)
         if on_block is not None:
             on_block()
-    G = acc.finish().cpu().numpy()
+    G = _sum_over_ranks(acc.finish().cpu().numpy(), mesh)
     del acc
     if not np.isfinite(G).all():
         raise FloatingPointError("ca_fit_sharded: the Gram of the residual is not finite")
@@ -613,3 +693,60 @@ def _blocks_to_host(make_block, nk: int, d: int, ranges, device: torch.device) -
     for slot in (0, 1):
         drain(slot)
     return out
+
+
+# ---------------- projection ----------------
+
+
+def project_sharded(mesh: Layout, spectra: np.ndarray, twister_t: np.ndarray,
+                    normalize: bool = True, device: torch.device | str | None = None) -> np.ndarray:
+    """``[B, K]`` spectra x ``[K, d]`` twister^T in f32 with B over
+    ``"data"`` and K over ``"kmer"``: each rank multiplies its block, the
+    row sums and then the ``[B_local, d]`` products are all-reduced over
+    the kmer group (the sums before the division), and the data groups'
+    rows are gathered.  Returns the host ``[B, d]`` on every rank."""
+    from ..config import device as default_device
+
+    device = default_device() if device is None else torch.device(device)
+    B, K = spectra.shape
+    b0, b1 = mesh.rows(B, "data")
+    k0, k1 = mesh.rows(K, "kmer")
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=device)
+
+    x, w = f32(spectra[b0:b1, k0:k1]), f32(twister_t[k0:k1])
+    if normalize:
+        sums = all_reduce(x.sum(dim=1), mesh.kmer_group)
+        x = x / torch.where(sums == 0.0, torch.ones_like(sums), sums)[:, None]
+    out = all_reduce(x @ w, mesh.kmer_group)
+    return torch.cat(all_gather_rows(out, mesh.data_host)).numpy()
+
+
+# ---------------- pairwise distances ----------------
+
+
+def pairwise_sharded(mesh: Layout, queries: np.ndarray, targets: np.ndarray, metric: np.ndarray,
+                     normalize: bool = True,
+                     device: torch.device | str | None = None) -> np.ndarray:
+    """Metric-weighted euclidean distances ``[B, T]`` in f32: the queries
+    split over all the ranks, the targets replicated, each rank's block
+    through the distance tile (``csrc/pairwise.cu``), the blocks gathered
+    in rank order (the layout for classification, where T << B).  Returns
+    the host ``[B, T]`` on every rank."""
+    from ..config import device as default_device
+
+    device = default_device() if device is None else torch.device(device)
+    q0, q1 = mesh.rows(queries.shape[0])
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32), device=device)
+
+    a, b, m = f32(queries[q0:q1]), f32(targets), f32(metric)
+    if normalize:
+        na, nb = pw.row_norms(a, m), pw.row_norms(b, m)
+    else:
+        na = torch.ones(a.shape[0], dtype=torch.float32, device=device)
+        nb = torch.ones(b.shape[0], dtype=torch.float32, device=device)
+    out = pw.distance_tile(a, b, m, na, nb) if a.shape[0] else a.new_zeros((0, b.shape[0]))
+    return torch.cat(all_gather_rows(out, mesh.world_host)).numpy()

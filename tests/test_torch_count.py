@@ -54,18 +54,21 @@ def make_params(seed, k, V, base=4, canonical=True, d=3):
     return tparams, jparams
 
 
-def emulate_lookup(params, codes: np.ndarray, seed: int = 0):
+def emulate_lookup(params, codes: np.ndarray, seed: int = 0, row0: int = 0, n_rows=None):
     """count_lookup: each thread's COUNT_RUN windows from one rolling code
-    (numpy, all threads at once); each block of 256 threads appends its
-    known windows' indices, in window order, at a place its one atomic on
-    the read set's count claims, so blocks land in any order (``seed``
-    shuffles them).  Returns the ``[B, Wp]`` u32 scratch, whose entries past
-    each read set's count are left as they were (garbage here), and the
-    counts."""
+    (numpy, all threads at once); each block of 256 threads appends the
+    indices of its known windows in the row range ``[row0, row0 + n_rows)``
+    (the whole vocabulary by default), less row0, in window order, at a
+    place its one atomic on the read set's count claims, so blocks land in
+    any order (``seed`` shuffles them), and adds its known windows, in the
+    range or not, to the read set's known count.  Returns the ``[B, Wp]``
+    u32 scratch, whose entries past each read set's count are left as they
+    were (garbage here), the counts and the known counts."""
     rng = np.random.default_rng(seed)
     k, base, canonical = params.k, params.base, params.canonical
     lut = params.vocab_lut.numpy().astype(np.int64)
     V = params.n_vocab
+    n_rows = V - row0 if n_rows is None else n_rows
     B, L = codes.shape
     W = L - k + 1
     Wp = -(-W // tp.COUNT_RUN) * tp.COUNT_RUN
@@ -97,12 +100,17 @@ def emulate_lookup(params, codes: np.ndarray, seed: int = 0):
     block = 256 * tp.COUNT_RUN  # windows a block looks up
     out = rng.integers(0, 2**32, size=(B, Wp), dtype=np.uint64).astype(np.uint32)
     n = np.zeros(B, dtype=np.int64)
+    n_known = np.zeros(B, dtype=np.int64)
     for b in range(B):
         parts = [p[p != MISS] for p in np.split(rows[b], range(block, Wp, block))]
-        known = np.concatenate([parts[i] for i in rng.permutation(len(parts))])
-        n[b] = len(known)
-        out[b, : n[b]] = known
-    return out, n
+        n_known[b] = sum(len(p) for p in parts)
+        # the range test as the kernel makes it: (u32)(x - row0) < rows
+        parts = [(p.astype(np.int64) - row0)[((p.astype(np.int64) - row0) & 0xFFFFFFFF) < n_rows]
+                 for p in parts]
+        kept = np.concatenate([parts[i] for i in rng.permutation(len(parts))])
+        n[b] = len(kept)
+        out[b, : n[b]] = kept.astype(np.uint32)
+    return out, n, n_known
 
 
 def emulate_slices(idx: np.ndarray, n_idx: np.ndarray, V: int, W: int, blocks: int = 264):
@@ -158,7 +166,8 @@ def emulate_slices(idx: np.ndarray, n_idx: np.ndarray, V: int, W: int, blocks: i
 
 def emulate_count(params, codes: np.ndarray):
     W = codes.shape[1] - params.k + 1
-    return emulate_slices(*emulate_lookup(params, codes), params.n_vocab, W)
+    idx, n, _ = emulate_lookup(params, codes)
+    return emulate_slices(idx, n, params.n_vocab, W)
 
 
 def read_like(seed, B, L, base=4):
@@ -252,3 +261,42 @@ def test_count_spectra_checks_its_arguments():
     # kernel, or raises where it cannot
     with pytest.raises(ValueError, match="CUDA"):
         tp.count_spectra(tparams, torch.empty((2, 10), dtype=torch.int8, device="meta"))
+
+
+@pytest.mark.parametrize("case", ["whole", "middle", "past_the_end", "one_row", "no_hits",
+                                  "u32_slices"])
+def test_emulated_row_range(monkeypatch, case):
+    """The row range of k-mer-sharded serving: the lookup keeps only the
+    known windows in [row0, row0 + rows), shifted by row0, the slices count
+    ``rows`` cells (rows past the vocabulary count nothing), and the known
+    count of each read set is all of its known windows.  Held to those
+    columns of the whole count, to the plain version with the range and to
+    the wrapper on the CPU."""
+    k, V, B, L = 5, 203, 5, 180
+    monkeypatch.setattr(tp, "COUNT_SLICE_BYTES", 96)  # several slices a range
+    row0, n_rows = {"whole": (0, V), "middle": (61, 70), "past_the_end": (160, 80),
+                    "one_row": (V - 1, 1), "no_hits": (V + 10, 30), "u32_slices": (17, 101)}[case]
+    if case == "u32_slices":
+        monkeypatch.setattr(tp, "COUNT_NARROW_MAX", 10)
+    tparams, jparams = make_params(11, k, V)
+    codes = read_like(12, B, L)
+    whole, _ = assert_counts(tparams, jparams, codes)
+    idx, n, n_known = emulate_lookup(tparams, codes, seed=3, row0=row0, n_rows=n_rows)
+    got, _ = emulate_slices(idx, n, n_rows, L - k + 1)
+    want = np.zeros((B, n_rows), dtype=np.float32)
+    cols = whole[:, row0: row0 + n_rows]
+    want[:, : cols.shape[1]] = cols
+    assert np.array_equal(got, want)
+    assert np.array_equal(n_known, whole.sum(axis=1))
+    for fn in (tp.count_spectra_ref, tp.count_spectra):
+        plain, known = fn(tparams, torch.from_numpy(codes), row0, n_rows, known=True)
+        assert np.array_equal(plain.numpy(), want)
+        assert known.dtype == torch.int32 and np.array_equal(known.numpy(), n_known)
+
+
+def test_row_range_checks_its_arguments():
+    tparams, _ = make_params(0, 3, 10)
+    codes = torch.zeros((2, 10), dtype=torch.int8)
+    for row0, rows in ((-1, 3), (0, -2)):
+        with pytest.raises(ValueError, match="row range"):
+            tp.count_spectra(tparams, codes, row0, rows)

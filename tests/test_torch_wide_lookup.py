@@ -253,5 +253,5 @@ def test_count_tasks_fill_one_wave_at_phase_3():
 def test_count_scratch_holds_the_rows_and_counts():
     W = 30_208 - 16 + 1
     Wp = -(-W // tp.COUNT_RUN) * tp.COUNT_RUN
-    assert tp.count_scratch_ints(128, 30_208, 16) == 128 * Wp + 128
-    assert tp.count_scratch_ints(1, 16, 16) == tp.COUNT_RUN + 1
+    assert tp.count_scratch_ints(128, 30_208, 16) == 128 * Wp + 2 * 128
+    assert tp.count_scratch_ints(1, 16, 16) == tp.COUNT_RUN + 2

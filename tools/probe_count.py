@@ -8,8 +8,9 @@ into ``kpop_tpu_torch/_build`` as on first use, and the probe builds
 patched copies of the count source in a temporary directory.  ``--parent
 DIR`` names a directory that holds an earlier ``count_spectra.cu`` with its
 ``wide_lookup.cuh`` (``git show <commit>:kpop_tpu_torch/csrc/<file>``),
-whose wide entry point takes the cuckoo table as ``build_cuckoo`` returns
-it and whose index scratch is ``B Wp`` ints, timed beside the package's.
+from before the row range: its entry points take no ``row0, rows,
+known``, its wide one the cuckoo table's probe layout, and its index
+scratch is ``B Wp + B`` ints.  It is timed beside the package's.
 
 Inputs: those of ``tools/probe_bag.py`` (phase 3's batch at k = 16 on the
 cuckoo hash and on the sorted limbs and at k = 10 on the LUT, phase 4's
@@ -70,13 +71,15 @@ def count_launcher(fns, params, codes, parent: bool = False):
     Bn, Ln = codes.shape
     W = Ln - params.k + 1
     Wp = -(-W // pl.COUNT_RUN) * pl.COUNT_RUN
-    ints = Bn * Wp if parent else pl.count_scratch_ints(Bn, Ln, params.k)
+    # an earlier source (before the row range) takes no row0, rows and
+    # keeps one count a read set in the scratch's tail
+    ints = Bn * Wp + Bn if parent else pl.count_scratch_ints(Bn, Ln, params.k)
     scratch = torch.empty(ints, dtype=torch.int32, device=codes.device)
     out = torch.empty((Bn, params.n_vocab), dtype=torch.float32, device=codes.device)
     suffix, vocab = vocab_of(params, codes, parent)
     fn = fns["kpop_count_spectra" + suffix]
     head = (codes.data_ptr(), Bn, Ln, params.k, int(params.canonical), params.base, *vocab,
-            params.n_vocab)
+            params.n_vocab) + (() if parent else (0, params.n_vocab, 0))
 
     def launch(s, o):
         err = fn(*head, s.data_ptr(), o.data_ptr(), torch.cuda.current_stream().cuda_stream)
@@ -110,6 +113,8 @@ def main() -> int:
     td = tempfile.mkdtemp()
     try:
         libs, report["ptxas"] = build(sources, td, "kpop_count_spectra", header)
+        for fn in libs.get("parent", {}).values():  # no row0, rows, known before idx
+            fn.argtypes = fn.argtypes[:-6] + fn.argtypes[-3:]
         inputs = synthetic_inputs(dev)
         lut_params, lut_codes = inputs["phase3 k=10 LUT"]
         inputs["hot k=10 LUT"] = (lut_params, torch.zeros_like(lut_codes))
