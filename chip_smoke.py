@@ -53,7 +53,16 @@ prints no result.  It imports nothing of JAX or of the JAX package
    against its plain version; the wrappers past the kernels' batch limits:
    the count at 70,000 read sets (k=5) against its plain version and the
    bag at 128 read sets of 8,388,608 windows against its own row groups
-   launched one by one and its plain version;
+   launched one by one and its plain version; and each entry point on the
+   2-bit read wire (``_packed``: DNA at 2 bits a base and a validity bit a
+   position, packed on the host) on the same read sets: the LUT count, the
+   wide count on the cuckoo hash and the sorted limbs, the range count
+   (phase 7's first batch), the bag on f32 and bf16 rows in the staged and
+   the gather regime on the LUT and the cuckoo hash, each torch.equal to
+   the int8 entry point (the count also to its plain version, the bag
+   within its tolerances of its plain version and float64), its time as
+   called and its kernels' alone beside the int8 entry point's, and its
+   bound with the wire read at 3/8 of a byte a base;
 4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
    tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
    at 1x coverage; vocabulary ~368k, d=511), trained on the card
@@ -64,7 +73,11 @@ prints no result.  It imports nothing of JAX or of the JAX package
    with parameters built around the device twister: top-1 accuracy >= 0.95
    on each, every kernel launched, each route's device time a batch,
    distances within 1e-4 of the host float64 chain, and the serving rate;
-   the same table fitted again on the streamed path with its budget forced
+   the same read sets served again on the 2-bit wire
+   (``DeviceStep(wire="packed")``), distances equal to the int8 wire's,
+   the packed entry points launched and the int8 ones not, and each
+   batch's host encode and pack ms and its upload bytes and ms on each
+   wire; the same table fitted again on the streamed path with its budget forced
    (STREAM_BLOCKS row blocks, phi on the host and on the card), within
    tests/test_dd.py's bounds of ``fit_ca``, its sv within 1e-10 of the
    resident fit's, its device memory within the budget, its uploads from
@@ -73,7 +86,8 @@ prints no result.  It imports nothing of JAX or of the JAX package
    to its own resident fit; then both routes
    served with a bf16 twister cast from the streamed fit's: accuracy >= 0.95
    on each, distances within 2e-2 x max(1, |x|) of the f32 route, no f32
-   copy of the twister;
+   copy of the twister, and both routes again on the 2-bit wire, equal to
+   the bf16 int8 wire's;
 5. cli: the README quick start trained by ``kpop-twist-torch`` with its
    default backend (the device CA), then through ``bin/kpop-classify-torch``
    (also with ``--dtype bf16``, its lines within 2e-2 x max(1, |x|) of the
@@ -96,8 +110,9 @@ prints no result.  It imports nothing of JAX or of the JAX package
    trained on the card on the streamed path with the budget forced (phi on
    the host, then ``phi="device"``), parameters built around the device
    twister with the cuckoo hash, phase 4's held-out read sets served on
-   both routes: top-1 accuracy >= 0.95 on each, the wide count, the wide
-   bag and the tile launched, each route's device time a batch, and the
+   both routes, on the int8 wire and on the 2-bit wire (equal distances):
+   top-1 accuracy >= 0.95 on each, the wide count, the wide bag and the
+   tile launched, each route's device time a batch, and the
    first batch within 1e-4 of the host float64 chain through the fit with
    phi on the host; then the twister cast to bf16 serves the bag route at
    accuracy >= 0.95, and the same bf16 parameters built from the host
@@ -105,7 +120,9 @@ prints no result.  It imports nothing of JAX or of the JAX package
    device memory than an f32 twister and equal the card's cast bit for bit;
    the first batch is also counted in the row ranges of 4 ranks (the
    ``count_spectra_rows`` row), as phase 3's k = 10 batch is: each range
-   torch.equal to its plain version and to the whole kernel's columns;
+   torch.equal to its plain version and to the whole kernel's columns, and
+   the first range on the 2-bit wire (``count_spectra_rows_packed``); the
+   bf16 bag route is also served on the 2-bit wire;
 8. sharded: phase 7's k = 16 table trained rank-sharded by 4 gloo ranks on
    the one card (``chip_smoke.py --sharded-rank``, the kernels built by this
    process first; NCCL refuses two ranks on one card), its sv within 1e-10
@@ -117,7 +134,9 @@ prints no result.  It imports nothing of JAX or of the JAX package
    within 2e-2 x max(1, |x|) of f32), each rank's shard and device memory,
    the launches of the main path summed over the ranks, the rate, and a
    batch split into count, product, all-reduce (gloo: through the host)
-   and distances; then the same at world size 1 over NCCL, whose
+   and distances; the f32 ``--kmer-parallel`` layout served again on the
+   2-bit wire, its distances equal to the int8 wire's on every rank (path
+   ``sharded_packed``); then the same at world size 1 over NCCL, whose
    all-reduce runs on the card.
 
 The kernel table is printed as one JSON line, then the card's name and
@@ -178,6 +197,17 @@ COUNT_RANGES = 4
 LARGE_K = 16
 LARGE_K_VOCAB = 1_011_930
 LARGE_K_KERNELS = ("kpop_count_spectra_wide", "kpop_embedding_bag_wide", "kpop_pairwise_dist")
+# the 2-bit read wire: what each packed entry point replaces (the TPU's
+# unpack pass, then the count or the bag), and the kernels each packed main
+# path must launch
+PACKED_COUNT_REPLACES = "kpop_tpu/ops/encode.py:213 with kpop_tpu/ops/pipeline.py:179"
+PACKED_BAG_REPLACES = "kpop_tpu/ops/encode.py:213 with kpop_tpu/ops/pipeline.py:200"
+PACKED_WIDE_REPLACES = PACKED_COUNT_REPLACES + " and :165-176"
+PACKED_WIDE_BAG_REPLACES = PACKED_BAG_REPLACES + " and :165-176"
+SLICE_PACKED_KERNELS = ("kpop_count_spectra_packed", "kpop_embedding_bag_packed",
+                        "kpop_pairwise_dist")
+LARGE_K_PACKED_KERNELS = ("kpop_count_spectra_wide_packed", "kpop_embedding_bag_wide_packed",
+                          "kpop_pairwise_dist")
 # the device CA against the host float64 fit_ca: tests/test_dd.py:81-84
 CA_BOUNDS = dict(sv=1e-8, inertia=1e-8, coords=1e-6, twister=1e-5)
 # the streamed CA fit: the budget forced so that the table streams in
@@ -325,14 +355,18 @@ def bag_f64(params, codes):
 def bag_errors(params, codes, what: str) -> tuple[float, float]:
     """The bag on the card against its plain version (``BAG_RTOL``,
     ``BAG_ATOL``) and float64 (``F64_ERR_RATIO`` of the plain version's
-    error): its max abs error to float64, and the plain version's."""
+    error): its max abs error to float64, and the plain version's.
+    ``codes``: int8 codes or the 2-bit wire (unpacked for the plain version
+    and float64)."""
     import torch
 
     from kpop_tpu_torch.ops import pipeline as pl
 
+    from kpop_tpu_torch.ops.encode import as_codes
+
     got = pl.project_reads(params, codes)
-    want = pl.project_reads_ref(params, codes)
-    exact = bag_f64(params, codes)
+    want = pl.project_reads_ref(params, as_codes(codes))
+    exact = bag_f64(params, as_codes(codes))
     torch.cuda.synchronize()
     if not torch.allclose(got, want, rtol=BAG_RTOL, atol=BAG_ATOL):
         raise AssertionError(
@@ -1146,6 +1180,10 @@ def bf16_regime_rows(dev, rng, params, d: int) -> dict:
         params, short, params.vocab_lut, f"[{BATCH}, 390] int8 codes, k={K}, twister "
         f"{list(params.twister.shape)}", "kpop_tpu/ops/pipeline.py:237", "kpop_embedding_bag",
         "slice_bf16", regime="gather")
+    rows["embedding_bag_packed_bf16_gather"] = packed_bag_row(
+        bf16_of(params), short, params.vocab_lut, f"[{BATCH}, 390], k={K}, twister "
+        f"{list(params.twister.shape)}", PACKED_BAG_REPLACES + " (:237-240)", "slice_bf16_packed",
+        regime="gather")
     genome = rng.integers(0, 4, size=20_000, dtype=np.int8)
     starts = rng.integers(0, len(genome) - 150, size=(BATCH, 30_208 // 151 + 1))
     reads = genome[starts[:, :, None] + np.arange(150)]  # [B, reads, 150]
@@ -1159,6 +1197,9 @@ def bf16_regime_rows(dev, rng, params, d: int) -> dict:
         wide, dense, wide.cuckoo, f"[{BATCH}, 30208] int8 codes of one 20 kb genome, "
         f"k={LARGE_K}, V=20000, cuckoo", "kpop_tpu/ops/pipeline.py:237 with :165-176",
         "kpop_embedding_bag_wide", "large_k_bf16", regime="staged")
+    rows["embedding_bag_wide_packed_bf16_staged"] = packed_bag_row(
+        bf16_of(wide), dense, wide.cuckoo, f"[{BATCH}, 30208] of one 20 kb genome, k={LARGE_K}, "
+        "V=20000, cuckoo", PACKED_WIDE_BAG_REPLACES, "large_k_bf16_packed", regime="staged")
     del short, dense, wide, tw
     torch.cuda.empty_cache()
     return rows
@@ -1231,6 +1272,10 @@ def wide_rows(dev, rng, codes, d: int) -> dict:
                 "%s %.4f" % (k.replace("void ", "").replace("(anonymous namespace)::", "")
                              .split("(")[0][:32], v)
                 for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))))
+        if i == 1:  # the sorted limbs on the 2-bit wire, beside the cuckoo row
+            limbs = packed_count_row(params, c, table, what, PACKED_WIDE_REPLACES, "large_k_packed")
+            rows["count_spectra_wide_packed"]["sorted_limbs"] = {
+                k: limbs[k] for k in ("ms", "alone_ms", "int8_ms", "int8_alone_ms", "bound_ms")}
         if i:
             del got
             continue
@@ -1272,6 +1317,15 @@ def wide_rows(dev, rng, codes, d: int) -> dict:
         rows["embedding_bag_wide_bf16"] = bag_bf16_row(
             params, c, table, what, "kpop_tpu/ops/pipeline.py:237 with :165-176",
             "kpop_embedding_bag_wide", "large_k_bf16")
+        # the same batch on the 2-bit wire: the wide count, the wide bag on
+        # f32 and bf16 rows (the gather regime)
+        rows["count_spectra_wide_packed"] = packed_count_row(
+            params, c, table, what, PACKED_WIDE_REPLACES, "large_k_packed")
+        rows["embedding_bag_wide_packed"] = packed_bag_row(
+            params, c, table, what, PACKED_WIDE_BAG_REPLACES, "large_k_packed", regime="gather")
+        rows["embedding_bag_wide_packed_bf16"] = packed_bag_row(
+            bf16_of(params), c, table, what, PACKED_WIDE_BAG_REPLACES, "large_k_bf16_packed",
+            regime="gather")
     del blocks, twister
     torch.cuda.empty_cache()
     return rows
@@ -1346,6 +1400,17 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     rows["embedding_bag_bf16"] = bag_bf16_row(
         params, codes, params.vocab_lut, f"[{B}, {L}] int8 codes, k={K}, twister [{V}, {d}]",
         "kpop_tpu/ops/pipeline.py:237", "kpop_embedding_bag", "slice_bf16")
+    # the same batch on the 2-bit wire: the LUT count, and the bag on f32
+    # and on bf16 rows (the staged regime)
+    rows["count_spectra_packed"] = packed_count_row(
+        params, codes, params.vocab_lut, f"[{B}, {L}], k={K}, V={V}", PACKED_COUNT_REPLACES,
+        "slice_packed")
+    rows["embedding_bag_packed"] = packed_bag_row(
+        params, codes, params.vocab_lut, f"[{B}, {L}], k={K}, twister [{V}, {d}]",
+        PACKED_BAG_REPLACES, "slice_packed", regime="staged")
+    rows["embedding_bag_packed_bf16"] = packed_bag_row(
+        bf16_of(params), codes, params.vocab_lut, f"[{B}, {L}], k={K}, twister [{V}, {d}]",
+        PACKED_BAG_REPLACES + " (:237-240)", "slice_bf16_packed", regime="staged")
     rows.update(wide_rows(dev, np.random.default_rng(7), codes, d))
     rows.update(bf16_regime_rows(dev, np.random.default_rng(9), params, d))
 
@@ -1416,6 +1481,219 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
                r["bound_ms"], r["bound_by"])
         )
     return rows
+
+
+# ---------------- the 2-bit wire --------------------------------------------
+
+
+def packed_reads(codes):
+    """int8 codes on the card -> the same read sets on the 2-bit wire on
+    the card, packed on the host as ``DeviceStep(wire="packed")`` packs
+    them."""
+    import torch
+
+    from kpop_tpu_torch.ops.encode import PackedReads, pack_reads_2bit
+
+    packed, valid = pack_reads_2bit(codes.cpu().numpy())
+    return PackedReads(torch.as_tensor(packed, device=codes.device),
+                       torch.as_tensor(valid, device=codes.device), codes.shape[1])
+
+
+def wire_nbytes(reads) -> int:
+    """The wire's bytes: 2 bits a base and 1 bit a position, 3/8 of a byte
+    a base."""
+    return reads.packed.nbytes + reads.valid.nbytes
+
+
+def packed_count_row(params, codes, table, what: str, replaces: str, path: str,
+                     rows_range: tuple | None = None) -> dict:
+    """The count on the 2-bit wire (``kpop_count_spectra[_wide]_packed``) on
+    the read sets of ``codes``: torch.equal to its plain version (the wire
+    unpacked, then the plain count) and to the int8 entry point on the same
+    reads, over the whole vocabulary or ``rows_range`` (row0, rows, with
+    each read set's known windows); its time as called and its kernels'
+    alone, each beside the int8 entry point's in the same call, and its
+    bound with the wire read at 3/8 of a byte a base.  No library call
+    (as for the count)."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+    from kpop_tpu_torch.ops.encode import as_codes
+
+    reads = packed_reads(codes)
+    V = params.n_vocab
+    row0, rows, known = (0, V, False) if rows_range is None else (*rows_range, True)
+
+    def count(r):
+        return pl.count_spectra(params, r, row0, rows, known)
+
+    def plain():
+        return pl.count_spectra_ref(params, as_codes(reads), row0, rows, known)
+
+    got, twin, want = count(reads), count(codes), plain()
+    torch.cuda.synchronize()
+    flat = (lambda x: x if isinstance(x, tuple) else (x,))  # noqa: E731
+    same = (all(torch.equal(a, b) for a, b in zip(flat(got), flat(twin))),
+            all(torch.equal(a, b) for a, b in zip(flat(got), flat(want))))
+    if not all(same):
+        raise AssertionError(f"packed count at {what}: equal to (the int8 entry point, the plain "
+                             f"version): {same}")
+    B, L = codes.shape
+    suffix, vocab = pl.vocab_args("count_spectra", params, codes)
+    scratch = torch.empty(pl.count_scratch_ints(B, L, params.k), dtype=torch.int32,
+                          device=codes.device)
+    out = torch.empty((B, rows), dtype=torch.float32, device=codes.device)
+    args = (B, L, params.k, int(params.canonical), params.base, *vocab, V, row0, rows, int(known),
+            scratch.data_ptr(), out.data_ptr())
+    name = "kpop_count_spectra" + suffix
+    alone = kernel_alone_ms(name + "_packed", reads.packed.data_ptr(), reads.valid.data_ptr(),
+                            *args)
+    int8_alone = kernel_alone_ms(name, codes.data_ptr(), *args)
+    del scratch, out, twin, want
+    ms, int8_ms = time_ms(lambda: count(reads)), time_ms(lambda: count(codes))
+    plain_ms = time_ms(plain, reps=3)
+    W = L - params.k + 1
+    log("kernel count_spectra on the 2-bit wire at %s%s: %s (plain, the int8 entry point); "
+        "%.4f ms as called (int8 %.4f), kernels alone %.4f (int8 %.4f); wire %d B against %d B "
+        "of codes" % (what, "" if rows_range is None else f", rows [{row0}, {row0 + rows})",
+                      COUNT_TOL, ms, int8_ms, alone, int8_alone, wire_nbytes(reads), codes.nbytes))
+    # the wire and the table read once, the spectra (and the known counts)
+    # written once; one add per window
+    return dict(
+        bound(wire_nbytes(reads) + table.nbytes + B * rows * 4 + (B * 4 if known else 0),
+              B * W / F32_FLOPS * 1e3),
+        err=0.0, tol=COUNT_TOL + " to the plain version and to the int8 entry point",
+        library_ms=None, ms=ms, plain_ms=plain_ms, alone_ms=alone, int8_ms=int8_ms,
+        int8_alone_ms=int8_alone,
+        shape="%s, the 2-bit wire%s" % (what, "" if rows_range is None else
+                                        f", rows [{row0}, {row0 + rows}) of {V}"),
+        source="kpop_tpu_torch/csrc/count_spectra.cu", replaces=replaces,
+        launch=name + "_packed", path=path,
+    )
+
+
+def packed_bag_row(params, codes, table, what: str, replaces: str, path: str,
+                   regime: str | None = None) -> dict:
+    """The bag on the 2-bit wire (``kpop_embedding_bag[_wide]_packed``) on
+    the read sets of ``codes``: torch.equal to the int8 entry point on the
+    same reads, within the bag's tolerances of its plain version (the wire
+    unpacked, then the plain bag) and of float64 (``bag_errors``), in the
+    regime ``regime`` where given; its time as called and its kernels'
+    alone, each beside the int8 entry point's in the same call, and its
+    bound with the wire read at 3/8 of a byte a base and each hit row once.
+    No library call (as for the count)."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+    from kpop_tpu_torch.ops.encode import as_codes
+    from kpop_tpu_torch.ops.pairwise import _sm_count
+
+    reads = packed_reads(codes)
+    got, twin = pl.project_reads(params, reads), pl.project_reads(params, codes)
+    torch.cuda.synchronize()
+    if not torch.equal(got, twin):
+        raise AssertionError(f"packed bag at {what} differs from the int8 entry point: "
+                             f"{float((got - twin).abs().max()):.3g}")
+    err, plain_err = bag_errors(params, reads, "on the 2-bit wire at " + what)
+    bf16 = params.twister.dtype == torch.bfloat16
+    want = pl.project_reads_ref(params, codes)
+    _lib, n_known, hit, entries, tiles = bag_library_call(
+        params, codes, want, rtol=BF16_LIBRARY_RTOL if bf16 else LIBRARY_RTOL)
+    taken = pl.bag_regime(entries, tiles)
+    if regime is not None and taken != regime:
+        raise AssertionError(f"packed bag at {what} takes the {taken} regime, not {regime}")
+    B, L = codes.shape
+    tw = params.twister
+    V, d = tw.shape
+    S = pl.bag_plan(V, d, _sm_count(codes.device))
+    Bg = min(pl.BAG_GROUP, B)
+    iwork = torch.empty(pl.bag_workspace_ints(Bg, L, params.k, V), dtype=torch.int32,
+                        device=codes.device)
+    fwork = torch.empty(S * Bg * d, dtype=torch.float32, device=codes.device)
+    out = torch.empty((B, d), dtype=torch.float32, device=codes.device)
+    suffix, vocab = pl.vocab_args("project_reads", params, codes)
+    args = (B, L, params.k, int(params.canonical), params.base, *vocab, V, tw.data_ptr(),
+            pl.BAG_ROW_TYPES[tw.dtype], d, tw.stride(0), 1, S, iwork.data_ptr(), fwork.data_ptr(),
+            out.data_ptr())
+    name = "kpop_embedding_bag" + suffix
+    alone = kernel_alone_ms(name + "_packed", reads.packed.data_ptr(), reads.valid.data_ptr(),
+                            *args)
+    int8_alone = kernel_alone_ms(name, codes.data_ptr(), *args)
+    del iwork, fwork, out, twin, _lib
+    ms = time_ms(lambda: pl.project_reads(params, reads), reps=5)
+    int8_ms = time_ms(lambda: pl.project_reads(params, codes), reps=5)
+    plain_ms = time_ms(lambda: pl.project_reads_ref(params, as_codes(reads)), reps=3)
+    log("kernel embedding_bag on the 2-bit wire at %s%s: torch.equal to the int8 entry point, "
+        "the %s regime; max abs err to float64 %.3g, plain version %.3g; %.4f ms as called "
+        "(int8 %.4f), kernels alone %.4f (int8 %.4f)"
+        % (what, ", bf16 twister" if bf16 else "", taken, err, plain_err, ms, int8_ms, alone,
+           int8_alone))
+    row = dict(
+        bound(wire_nbytes(reads) + table.nbytes + hit * d * tw.element_size() + got.nbytes,
+              float(n_known) * d / F32_FLOPS * 1e3),
+        err=float((got - want).abs().max()), err_f64=err, plain_err_f64=plain_err,
+        tol=f"torch.equal to the int8 entry point; rtol {BAG_RTOL}, atol {BAG_ATOL} of the plain "
+            f"version; err to float64 <= {F64_ERR_RATIO:g}x the plain version's",
+        library_ms=None, ms=ms, plain_ms=plain_ms, alone_ms=alone, int8_ms=int8_ms,
+        int8_alone_ms=int8_alone, regime=taken,
+        shape="%s, the 2-bit wire%s" % (what, ", bf16 twister" if bf16 else ""),
+        source="kpop_tpu_torch/csrc/embedding_bag.cu", replaces=replaces,
+        launch=name + "_packed", path=path,
+    )
+    del got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def wire_costs(label: str, dev, batches) -> None:
+    """What each wire costs a batch, on the host and on the way to the
+    card: host encode ms, host pack ms (``pack_reads_2bit``), the bytes of
+    each wire and the median ms of its upload from pinned memory (CUDA
+    events around the copy), logged for each batch, with their medians."""
+    import torch
+
+    from kpop_tpu_torch.ops.encode import encode_reads_host, pack_reads_2bit
+
+    per = []
+    for _truth, seqs in batches:
+        t0 = time.perf_counter()
+        codes = encode_reads_host(seqs)
+        t1 = time.perf_counter()
+        packed, valid = pack_reads_2bit(codes)
+        t2 = time.perf_counter()
+        host_codes = torch.from_numpy(codes).pin_memory()
+        host_wire = torch.from_numpy(np.concatenate([packed.ravel(), valid.ravel()])).pin_memory()
+        per.append(dict(
+            encode_ms=(t1 - t0) * 1e3, pack_ms=(t2 - t1) * 1e3,
+            codes_bytes=codes.nbytes, wire_bytes=host_wire.numel(),
+            codes_upload_ms=time_ms(lambda: host_codes.to(dev, non_blocking=True), reps=5),
+            wire_upload_ms=time_ms(lambda: host_wire.to(dev, non_blocking=True), reps=5)))
+    for i, b in enumerate(per):
+        log("%s: batch %d: host encode %.4f ms, pack %.4f ms; upload %d B of codes %.4f ms, %d B "
+            "of the 2-bit wire %.4f ms" % (label, i, b["encode_ms"], b["pack_ms"], b["codes_bytes"],
+                                          b["codes_upload_ms"], b["wire_bytes"],
+                                          b["wire_upload_ms"]))
+    med = {k: float(np.median([b[k] for b in per])) for k in per[0]}
+    log("%s: medians a batch: %s" % (label, json.dumps(med)))
+
+
+def packed_serving(label: str, params, batches, dmats, kernels, paths) -> dict:
+    """The read sets served on ``paths`` through ``DeviceStep(wire=
+    "packed")``: the main path of serve_routes (every count set to 0 just
+    before, read just after; each of ``kernels`` launched; accuracy >=
+    ACCURACY_GATE), no int8 entry point of the count or the bag launched,
+    and each route's distances equal to ``dmats``, the int8 wire's."""
+    got, launches, accuracy, busy, launch_ms = serve_routes(label, params, batches, kernels, paths,
+                                                            wire="packed")
+    int8 = [n for n in ("kpop_count_spectra", "kpop_count_spectra_wide", "kpop_embedding_bag",
+                        "kpop_embedding_bag_wide") if launches[n]]
+    if int8:
+        raise AssertionError(f"{label}: the packed wire launched int8 entry points {int8}")
+    for path in paths:
+        if not np.array_equal(np.concatenate(got[path]), np.concatenate(dmats[path])):
+            raise AssertionError(f"{label}, {path}: distances differ from the int8 wire's")
+    log("%s: distances equal to the int8 wire's on %s" % (label, ", ".join(paths)))
+    return dict(launches=launches, accuracy=accuracy, busy=busy, launch_ms=launch_ms)
 
 
 # ---------------- phase 4: the slice at the headline shape ---------------
@@ -1531,10 +1809,12 @@ def device_ms_by_kernel(fn) -> dict:
     return out
 
 
-def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag")) -> tuple:
+def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag"),
+                 wire: str = "codes") -> tuple:
     """The main path: the read sets served on the dense and the bag route
     (or ``paths``), every launch count set to 0 just before and read just
-    after, each of ``kernels`` launched; finite [read sets, classes]
+    after, each of ``kernels`` launched, the read sets sent on ``wire``
+    (DeviceStep's); finite [read sets, classes]
     distances and top-1 accuracy >= ACCURACY_GATE on each route; then each
     route's device time a batch and its largest kernels.  Returns (distance
     blocks by route, launches, accuracy, device ms a batch, and device ms a
@@ -1544,7 +1824,7 @@ def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag")) -
 
     for name in _build.LAUNCHES:
         _build.LAUNCHES[name] = 0
-    dmats = {path: serve(DeviceStep(params, path), batches) for path in paths}
+    dmats = {path: serve(DeviceStep(params, path, wire=wire), batches) for path in paths}
     launches = dict(_build.LAUNCHES)
     log("%s: kernel launches on the main path: %s" % (label, json.dumps(launches)))
     missing = [name for name in kernels if launches[name] == 0]
@@ -1563,7 +1843,7 @@ def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag")) -
             raise AssertionError(f"{label}, {path}: accuracy {accuracy[path]} < {ACCURACY_GATE}")
     busy, launch_ms = {}, {}
     for path in paths:
-        by_kernel = device_ms_by_kernel(lambda: serve(DeviceStep(params, path), batches))
+        by_kernel = device_ms_by_kernel(lambda: serve(DeviceStep(params, path, wire=wire), batches))
         busy[path] = sum(by_kernel.values()) / len(batches)
         launch_ms[path] = {k: v / len(batches) for k, v in by_kernel.items()}
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
@@ -1766,7 +2046,7 @@ def bf16_serving(label: str, params, batches, dmats, kernels, paths) -> dict:
     if max(err.values()) > BF16_BOUND:
         raise AssertionError(f"{label}: bf16 distances off the f32 route: {err}")
     return dict(launches=launches, accuracy=accuracy, busy=busy, err=err, peak=peak,
-                launch_ms=launch_ms)
+                launch_ms=launch_ms, dmats=got)
 
 
 def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
@@ -1877,12 +2157,20 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     batches = read_set_batches(rng, held_out, batch)
     n_seqs = sum(len(t) for t, _ in batches)
     width = max(len(s) for _, seqs in batches for s in seqs)
-    dmats, launches, accuracy, _busy, launch_ms = serve_routes("slice", params, batches,
-                                                               SLICE_KERNELS)
+    dmats, launches, accuracy, busy, launch_ms = serve_routes("slice", params, batches,
+                                                              SLICE_KERNELS)
+    # the same read sets on the 2-bit wire, and what each wire costs a batch
+    packed = packed_serving("slice packed", params, batches, dmats, SLICE_PACKED_KERNELS,
+                            ("dense", "bag"))
+    log("slice: device ms a batch by route, int8 wire %s, 2-bit wire %s"
+        % (json.dumps(busy), json.dumps(packed["busy"])))
+    wire_costs("slice wires", dev, batches)
     # bf16 parameters around the streamed fit's device twister, both routes
     params16 = params_around_twister(space, vocab_hex, streamed.pop("phi_dev"), streamed["inertia"],
                                      streamed["coords"], dtype=torch.bfloat16)
     bf16 = bf16_serving("slice bf16", params16, batches, dmats, SLICE_KERNELS, ("dense", "bag"))
+    bf16_packed = packed_serving("slice bf16 packed", params16, batches, bf16["dmats"],
+                                 SLICE_PACKED_KERNELS, ("dense", "bag"))
     del params16
     log_accumulate("slice", launch_ms["bag"], bf16["launch_ms"]["bag"])
 
@@ -1898,20 +2186,23 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     # serving rate: host encode, upload, device step and download, one
     # batch in flight, route picked as kpop-classify's default 'auto' does
     auto = pick_path(batch, width - K + 1, params.n_vocab, d)
-    rates = []
-    for _ in range(3):
+    rates = {}
+    for wire in ("codes", "packed", "packed", "codes"):
         t0 = time.perf_counter()
-        serve(DeviceStep(params, "auto"), batches)
-        rates.append(n_seqs / (time.perf_counter() - t0))
-    log("slice: serving %s seqs/s over %d read sets per pass (route %s; "
-        "host encode + upload + device step + download), on %s"
-        % ([round(r, 1) for r in rates], n_seqs, auto, card))
+        serve(DeviceStep(params, "auto", wire=wire), batches)
+        rates.setdefault(wire, []).append(n_seqs / (time.perf_counter() - t0))
+    log("slice: serving seqs/s over %d read sets per pass (route %s; host encode%s + upload + "
+        "device step + download), in the order codes, packed, packed, codes: int8 wire %s, "
+        "2-bit wire %s, on %s"
+        % (n_seqs, auto, " (+ pack)", [round(r, 1) for r in rates["codes"]],
+           [round(r, 1) for r in rates["packed"]], card))
     return dict(launches=launches, train_launches=train_launches, accuracy=accuracy,
                 host_err=host_err, seqs_per_s=rates, vocab=params.n_vocab, d=d,
                 train_s=train_s, train_phases=phases, ca_err=ca_err, table=table,
                 genomes=genomes, batches=batches, stream_launches=streamed["launches"],
                 stream_rows=streamed["device_stream"]["block_rows"],
-                bf16_launches=bf16["launches"])
+                bf16_launches=bf16["launches"], packed_launches=packed["launches"],
+                bf16_packed_launches=bf16_packed["launches"])
 
 
 # ---------------- phase 5: the quick start through the CLI ---------------
@@ -2290,6 +2581,10 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
            time.perf_counter() - t0))
     dmats, launches, accuracy, busy, launch_ms = serve_routes("large k", params, batches,
                                                               LARGE_K_KERNELS)
+    packed = packed_serving("large k packed", params, batches, dmats, LARGE_K_PACKED_KERNELS,
+                            ("dense", "bag"))
+    log("large k: device ms a batch by route, int8 wire %s, 2-bit wire %s"
+        % (json.dumps(busy), json.dumps(packed["busy"])))
     log("large k: on %s" % card)
     # phase 8's count: the first batch in the row ranges of 4 ranks
     codes = encode_reads_host(batches[0][1])
@@ -2297,10 +2592,18 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
                                    constant_values=-1), device=dev)
     rows_row = count_rows_check(params, codes, f"phase 7's first batch {list(codes.shape)}, "
                                 f"k={LARGE_K}, V={params.n_vocab}, cuckoo", timed=True)
+    # the same range on the 2-bit wire (phase 8's packed serving)
+    rows_packed_row = packed_count_row(
+        params, codes, params.cuckoo, f"phase 7's first batch {list(codes.shape)}, k={LARGE_K}, "
+        f"V={params.n_vocab}, cuckoo", "kpop_tpu/ops/encode.py:213 with "
+        "kpop_tpu/parallel/serving.py:113", "sharded_packed",
+        rows_range=(0, -(-params.n_vocab // COUNT_RANGES)))
     del params, codes
     torch.cuda.empty_cache()
     bf16 = bf16_serving("large k bf16", params16, batches, dmats,
                         ("kpop_embedding_bag_wide", "kpop_pairwise_dist"), ("bag",))
+    bf16_packed = packed_serving("large k bf16 packed", params16, batches, bf16["dmats"],
+                                 ("kpop_embedding_bag_wide_packed", "kpop_pairwise_dist"), ("bag",))
     del params16
     log_accumulate("large k", launch_ms["bag"], bf16["launch_ms"]["bag"])
 
@@ -2315,7 +2618,9 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
     return dict(launches=launches, accuracy=accuracy, host_err=host_err, busy=busy,
                 vocab=len(vocab_hex), train_s=train_s, bf16_launches=bf16["launches"],
                 stream_launches=fit["launches"], stream_rows=fit["device_stream"]["block_rows"],
-                rows_row=rows_row, table=table, vocab_hex=vocab_hex, sv=fit["sv"], want=want)
+                rows_row=rows_row, table=table, vocab_hex=vocab_hex, sv=fit["sv"], want=want,
+                rows_packed_row=rows_packed_row, packed_launches=packed["launches"],
+                bf16_packed_launches=bf16_packed["launches"])
 
 
 # ---------------- phase 8: sharded over ranks ----------------------------
@@ -2501,6 +2806,24 @@ def sharded_rank(rank: int, world: int, port: int, workdir: str, backend: str) -
                                  f"above its shard, tables and a batch: {res['peak_bound']} B")
         if kp_opt:
             res["stages_ms"] = stage_ms(step, batches)
+        if kp_opt and dtype_name == "f32":
+            # the same layout on the 2-bit wire: the count's packed entry
+            # point over the rank's rows, the distances the int8 wire's
+            pstep = DeviceStep(params, mesh=mesh, dmat=sharded_dmat_fn(mesh, v), wire="packed")
+            serve(pstep, batches[:1])  # warm-up
+            for name in _build.LAUNCHES:
+                _build.LAUNCHES[name] = 0
+            t0 = time.perf_counter()
+            pblocks = serve(pstep, batches)
+            wall = time.perf_counter() - t0
+            res["packed"] = dict(launches=dict(_build.LAUNCHES), seqs_per_s=n_seqs / wall,
+                                 equal=bool(np.array_equal(np.concatenate(pblocks), dmat)))
+            pl_ = res["packed"]["launches"]
+            if not (res["packed"]["equal"] and pl_["kpop_count_spectra_wide_packed"]
+                    and not pl_["kpop_count_spectra_wide"]):
+                raise AssertionError(f"rank {rank}: the packed wire's distances equal the int8 "
+                                     f"wire's: {res['packed']['equal']}; launches {pl_}")
+            del pstep
         out["serving"].append(res)
         del params, step
         torch.cuda.empty_cache()
@@ -2641,6 +2964,15 @@ def phase_sharded(lk: dict, batches, card: str) -> dict:
                        max(peaks) / res["twister_bytes"], res["peak_bound"],
                        json.dumps(summed_launches(r["serving"][i]["launches"] for r in ranks)),
                        card))
+                if "packed" in res:
+                    log("sharded %s x%d, %s %s on the 2-bit wire: distances equal to the int8 "
+                        "wire's on every rank %s; %.1f read sets/s on rank 0; main path "
+                        "launches summed over the ranks %s"
+                        % (backend, world, res["option"], res["dtype"],
+                           all(r["serving"][i]["packed"]["equal"] for r in ranks),
+                           res["packed"]["seqs_per_s"],
+                           json.dumps(summed_launches(r["serving"][i]["packed"]["launches"]
+                                                      for r in ranks))))
                 if "stages_ms" in res:
                     log("sharded %s x%d, %s %s: a batch of %d on rank 0, ms by step (median; the "
                         "all-reduce %s): %s"
@@ -2656,6 +2988,8 @@ def phase_sharded(lk: dict, batches, card: str) -> dict:
             result[backend] = ranks
         main = result["gloo"]
         return dict(launches=summed_launches(r["serving"][0]["launches"] for r in main),
+                    packed_launches=summed_launches(r["serving"][0]["packed"]["launches"]
+                                                    for r in main),
                     ranks=result)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2706,6 +3040,7 @@ def main() -> int:
     lk = phase_large_k(dev, sl.pop("genomes"), phase7_batches, card)
     log("large k: %.1f s (device CA fit %.3f s)" % (time.perf_counter() - t0, lk["train_s"]))
     rows["count_spectra_rows"] = lk.pop("rows_row")
+    rows["count_spectra_rows_packed"] = lk.pop("rows_packed_row")
     # 8. sharded
     t0 = time.perf_counter()
     sh = phase_sharded(lk, phase7_batches, card)
@@ -2723,7 +3058,11 @@ def main() -> int:
     launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"],
                 "large_k": lk["launches"], "train_streamed": sl["stream_launches"],
                 "slice_bf16": sl["bf16_launches"], "large_k_bf16": lk["bf16_launches"],
-                "sharded": sh["launches"]}
+                "sharded": sh["launches"], "slice_packed": sl["packed_launches"],
+                "slice_bf16_packed": sl["bf16_packed_launches"],
+                "large_k_packed": lk["packed_launches"],
+                "large_k_bf16_packed": lk["bf16_packed_launches"],
+                "sharded_packed": sh["packed_launches"]}
     def entry_launches(r) -> dict:
         names = (r["launch"],) if isinstance(r["launch"], str) else r["launch"]
         return {n: launches[r["path"]][n] for n in names}
@@ -2735,11 +3074,15 @@ def main() -> int:
              bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
              path=r["path"],
              **({"launches_by_entry": entry_launches(r)} if len(entry_launches(r)) > 1 else {}),
-             **{k: r[k] for k in ("device_ms", "err_f64", "plain_err_f64", "addmm_ms", "regime")
+             **{k: r[k] for k in ("device_ms", "err_f64", "plain_err_f64", "addmm_ms", "regime",
+                                  "alone_ms", "int8_ms", "int8_alone_ms", "sorted_limbs")
                 if k in r})
         for name, r in rows.items()
         if r["path"] is not None
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernel rows whose main path never launched them: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

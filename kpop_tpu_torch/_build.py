@@ -58,6 +58,15 @@ _SIGNATURES = {
                            _P),
     "kpop_embedding_bag_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _I, _I, _I, _I, _I, _P, _P,
                                 _P, _P),
+    # the same four on the 2-bit wire: packed and valid bytes in place of
+    # the codes (DNA, base 4)
+    "kpop_count_spectra_packed": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P),
+    "kpop_count_spectra_wide_packed": (_P, _P, _I, _I, _I, _I, _I, *_WIDE, _I, _I, _I, _I, _P, _P,
+                                       _P),
+    "kpop_embedding_bag_packed": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+                                  _P, _P, _P),
+    "kpop_embedding_bag_wide_packed": (_P, _P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _I, _I, _I, _I,
+                                       _I, _P, _P, _P, _P),
     # dmat, B, N, k, stats, top, idx (int64), stream
     "kpop_row_digest": (_P, _I, _I, _I, _P, _P, _P, _P),
     # x, wire, K, ns, alpha, u, beta, v, slices, rows per slice, partials,

@@ -53,7 +53,7 @@ from .. import __version__
 from ..config import device
 from ..parallel import distributed
 from ..parallel.mesh import Layout, all_gather_rows, make_mesh
-from ..ops.encode import encode_reads_host
+from ..ops.encode import PackedReads, encode_reads_host, pack_reads_2bit, packed_strides
 from ..ops.pipeline import (
     ClassifierParams,
     build_classifier_params,
@@ -129,9 +129,10 @@ def pick_path(B: int, W: int, V: int, d: int) -> str:
     return "bag" if bag_bytes < dense_bytes else "dense"
 
 
-def dmat_step(params: ClassifierParams, base_codes: torch.Tensor, path: str):
-    """``[B, L]`` base codes -> ``[B, C]`` distances to the classes, through
-    the dense route (count, then the twister product) or the bag."""
+def dmat_step(params: ClassifierParams, base_codes, path: str):
+    """``[B, L]`` base codes (or :class:`~..ops.encode.PackedReads`) ->
+    ``[B, C]`` distances to the classes, through the dense route (count,
+    then the twister product) or the bag."""
     check_whole_twister("dmat_step", params)
     if path == "bag":
         twisted = project_reads(params, base_codes)
@@ -158,14 +159,27 @@ class DeviceStep:
     alone.  ``tensor.cpu()`` would also wait for any batch dispatched after
     this one, and the serve loop keeps one batch in flight so that the host
     formats one batch while the card computes the next.
+
+    ``wire`` is what crosses to the card: ``"codes"``, one int8 code a base
+    (the default, as the JAX tool serves), or ``"packed"``, DNA on the
+    2-bit wire (:func:`~..ops.encode.pack_reads_2bit`, 3/8 of a byte a
+    base), packed on the host and staged as one pinned buffer, the packed
+    bytes then the validity bytes, uploaded by one copy; the kernels read
+    it as it is (:class:`~..ops.encode.PackedReads`), with the same
+    distances.
     """
 
     def __init__(self, params: ClassifierParams, path: str = "auto", mesh: Layout | None = None,
-                 dmat=None):
+                 dmat=None, wire: str = "codes"):
+        if wire not in ("codes", "packed"):
+            raise ValueError(f"wire must be 'codes' or 'packed', not {wire!r}")
+        if wire == "packed" and params.base != 4:
+            raise ValueError(f"the 2-bit wire holds DNA, not base {params.base}")
         self.params = params
         self.path = path
         self.mesh = Layout(dp=1, kp=1) if mesh is None else mesh
         self.dmat = dmat
+        self.wire = wire
         self.device = params.twister.device
 
     def dispatch(self, seqs: list[str]):
@@ -181,19 +195,38 @@ class DeviceStep:
             self.path = pick_path(
                 codes.shape[0], codes.shape[1] - p.k + 1, p.n_vocab, p.twister.shape[1]
             )
-        base_codes = torch.from_numpy(codes)
         group = mesh.data_host
+        if self.wire == "packed":
+            reads = self._upload_packed(codes)
+        elif self.device.type == "cpu":
+            reads = torch.from_numpy(codes)
+        else:
+            reads = torch.from_numpy(codes).pin_memory().to(self.device, non_blocking=True)
         if self.device.type == "cpu":
-            return self._dmat(base_codes), None, n, group
-        base_codes = base_codes.pin_memory().to(self.device, non_blocking=True)
-        dmat = self._dmat(base_codes)
+            return self._dmat(reads), None, n, group
+        dmat = self._dmat(reads)
         host = torch.empty(dmat.shape, dtype=dmat.dtype, pin_memory=True)
         host.copy_(dmat, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return host, done, n, group
 
-    def _dmat(self, base_codes: torch.Tensor) -> torch.Tensor:
+    def _upload_packed(self, codes: np.ndarray) -> PackedReads:
+        """``[B, L]`` int8 codes packed on the host into one buffer (pinned
+        where the card takes it), packed bytes then validity bytes, and
+        uploaded by one copy that does not block."""
+        B, L = codes.shape
+        ps, vs = packed_strides(L)
+        staged = torch.empty(B * (ps + vs), dtype=torch.uint8,
+                             pin_memory=self.device.type != "cpu")
+        packed, valid = pack_reads_2bit(codes)
+        host = staged.numpy()
+        host[: B * ps] = packed.reshape(-1)
+        host[B * ps:] = valid.reshape(-1)
+        wire = staged.to(self.device, non_blocking=True)
+        return PackedReads(wire[: B * ps].view(B, ps), wire[B * ps:].view(B, vs), L)
+
+    def _dmat(self, base_codes) -> torch.Tensor:
         if self.dmat is not None:
             return self.dmat(self.params, base_codes)
         return dmat_step(self.params, base_codes, self.path)

@@ -68,6 +68,12 @@
 // stores; the cuckoo lookup takes 0.076 ms, the sorted limbs' 0.32.
 // Reading only the known windows' indices is what keeps the slices at the
 // stores: every slice reads its read set's indices, 21 times at k = 16.
+//
+// The 2-bit wire (kpop_count_spectra_packed, kpop_count_spectra_wide_packed;
+// kpop-classify's packed uploads, DNA only): the lookup reads each base
+// from the packed and validity bytes (wide_lookup.cuh::PackedWire) where
+// the int8 entry points read a code byte; nothing else changes, so the
+// spectra are the int8 entry points' bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,22 +93,26 @@ constexpr uint32_t MISS = 0xffffffffu;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(RUN == 8, "two 16-byte loads a thread");
 
+// Wire: kpop::CodeWire (int8 codes; valid null) or kpop::PackedWire (the
+// 2-bit wire);
 // Find: kpop::LutFind (an int code, a dense table) or kpop::WideFind (a
 // uint64 code, the cuckoo hash or the sorted limbs; wide_lookup.cuh)
 // (at most 64 registers, four blocks an SM: the lookups' latency wants
 // the warps)
-template <class Find, bool RANGED>
+template <class Wire, class Find, bool RANGED>
 __global__ void __launch_bounds__(LOOKUP_THREADS, 4)
-count_lookup(const int8_t* __restrict__ codes, int L, int k, int canonical, int base,
-             const Find find, int V, int row0, int rows, int Wp, uint32_t* __restrict__ idx,
-             int* __restrict__ n_idx, int* __restrict__ n_known) {
+count_lookup(const typename Wire::Byte* __restrict__ bases, const uint8_t* __restrict__ valid,
+             int L, int k, int canonical, int base, const Find find, int V, int row0, int rows,
+             int Wp, uint32_t* __restrict__ idx, int* __restrict__ n_idx,
+             int* __restrict__ n_known) {
     __shared__ uint32_t known[LOOKUP_THREADS * RUN];
     __shared__ int warp_at[LOOKUP_THREADS / 32], warp_known[LOOKUP_THREADS / 32], block_at, block_n;
     const int b = blockIdx.y;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int w0 = (blockIdx.x * LOOKUP_THREADS + threadIdx.x) * RUN;
     int x[RUN];
-    kpop::window_rows<RUN>(codes + (size_t)b * L, L, k, canonical, base, find, w0, L - k + 1, x);
+    kpop::window_rows<RUN>(Wire::row(bases, valid, L, b), k, canonical, base, find, w0, L - k + 1,
+                           x);
     // a known window in the row range [row0, row0 + rows) is kept, shifted
     // by row0; with n_known, every known window counts into the read set's
     bool keep[RUN];
@@ -274,10 +284,10 @@ count_slices(const uint32_t* __restrict__ idx, const int* __restrict__ n_idx, in
 // entries (the kept indices, then each read set's count of them, then,
 // with known, its count of all known windows), Wp = L - k + 1 rounded up
 // to RUN
-template <class Find>
-int count_spectra(const int8_t* codes, int B, int L, int k, int canonical, int base,
-                  const Find& find, int V, int row0, int rows, int known, uint32_t* idx,
-                  float* out, void* stream) {
+template <class Wire, class Find>
+int count_spectra(const typename Wire::Byte* bases, const uint8_t* valid, int B, int L, int k,
+                  int canonical, int base, const Find& find, int V, int row0, int rows, int known,
+                  uint32_t* idx, float* out, void* stream) {
     const int W = L - k + 1;
     if (row0 < 0 || rows < 0) return (int)cudaErrorInvalidValue;
     if (B <= 0 || V <= 0 || rows == 0) return (int)cudaGetLastError();
@@ -289,12 +299,12 @@ int count_spectra(const int8_t* codes, int B, int L, int k, int canonical, int b
     if (Wp > 0) {
         const dim3 grid((Wp / RUN + LOOKUP_THREADS - 1) / LOOKUP_THREADS, B);
         if (row0 != 0 || rows != V || known)
-            count_lookup<Find, true><<<grid, LOOKUP_THREADS, 0, st>>>(
-                codes, L, k, canonical, base, find, V, row0, rows, Wp, idx, n_idx,
+            count_lookup<Wire, Find, true><<<grid, LOOKUP_THREADS, 0, st>>>(
+                bases, valid, L, k, canonical, base, find, V, row0, rows, Wp, idx, n_idx,
                 known ? n_idx + B : nullptr);
         else
-            count_lookup<Find, false><<<grid, LOOKUP_THREADS, 0, st>>>(
-                codes, L, k, canonical, base, find, V, row0, rows, Wp, idx, n_idx, nullptr);
+            count_lookup<Wire, Find, false><<<grid, LOOKUP_THREADS, 0, st>>>(
+                bases, valid, L, k, canonical, base, find, V, row0, rows, Wp, idx, n_idx, nullptr);
     }
     const bool wide = W > NARROW_MAX;
     const int cells = wide ? SLICE_BYTES / 4 : SLICE_BYTES / 2;
@@ -318,14 +328,16 @@ int count_spectra(const int8_t* codes, int B, int L, int k, int canonical, int b
 
 }  // namespace
 
-// k up to lut_k_max: lut is the dense [base^k + 1] table; the spectra of
-// the vocabulary rows [row0, row0 + rows) (0 and V: all of it), and with
-// known (nonzero) each read set's count of all its known windows
+// k up to lut_k_max: codes [B, L] int8; lut is the dense [base^k + 1]
+// table; the spectra of the vocabulary rows [row0, row0 + rows) (0 and V:
+// all of it), and with known (nonzero) each read set's count of all its
+// known windows
 extern "C" int kpop_count_spectra(const int8_t* codes, int B, int L, int k, int canonical,
                                   int base, const int32_t* lut, int V, int row0, int rows,
                                   int known, uint32_t* idx, float* out, void* stream) {
-    return count_spectra(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V, row0, rows,
-                         known, idx, out, stream);
+    return count_spectra<kpop::CodeWire>(codes, nullptr, B, L, k, canonical, base,
+                                         kpop::LutFind{lut, V}, V, row0, rows, known, idx, out,
+                                         stream);
 }
 
 // larger k: the cuckoo hash's probe layout (ops/cuckoo.py::probe_table) of
@@ -336,10 +348,35 @@ extern "C" int kpop_count_spectra_wide(const int8_t* codes, int B, int L, int k,
                                        uint32_t a1, uint32_t b1, uint32_t a2, uint32_t b2,
                                        const int32_t* limbs, int V, int row0, int rows,
                                        int known, uint32_t* idx, float* out, void* stream) {
-    if (k > 32 || !probe == !limbs || (probe && (slots & (slots - 1))) ||
-        reinterpret_cast<uintptr_t>(probe) % 16 || reinterpret_cast<uintptr_t>(limbs) % 8)
-        return (int)cudaErrorInvalidValue;
-    return count_spectra(codes, B, L, k, canonical, base,
-                         kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V), V,
-                         row0, rows, known, idx, out, stream);
+    if (!kpop::wide_args_ok(k, probe, slots, limbs)) return (int)cudaErrorInvalidValue;
+    return count_spectra<kpop::CodeWire>(
+        codes, nullptr, B, L, k, canonical, base,
+        kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V), V, row0, rows, known,
+        idx, out, stream);
+}
+
+// The same two on the 2-bit wire (DNA, base 4): packed [B, (L + 3) / 4]
+// and valid [B, (L + 7) / 8] bytes in place of the codes
+extern "C" int kpop_count_spectra_packed(const uint8_t* packed, const uint8_t* valid, int B,
+                                         int L, int k, int canonical, int base,
+                                         const int32_t* lut, int V, int row0, int rows,
+                                         int known, uint32_t* idx, float* out, void* stream) {
+    if (base != 4) return (int)cudaErrorInvalidValue;
+    return count_spectra<kpop::PackedWire>(packed, valid, B, L, k, canonical, base,
+                                           kpop::LutFind{lut, V}, V, row0, rows, known, idx, out,
+                                           stream);
+}
+
+extern "C" int kpop_count_spectra_wide_packed(const uint8_t* packed, const uint8_t* valid, int B,
+                                              int L, int k, int canonical, int base, int k_lo,
+                                              const int32_t* probe, int slots, uint32_t a1,
+                                              uint32_t b1, uint32_t a2, uint32_t b2,
+                                              const int32_t* limbs, int V, int row0, int rows,
+                                              int known, uint32_t* idx, float* out,
+                                              void* stream) {
+    if (base != 4 || !kpop::wide_args_ok(k, probe, slots, limbs)) return (int)cudaErrorInvalidValue;
+    return count_spectra<kpop::PackedWire>(
+        packed, valid, B, L, k, canonical, base,
+        kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V), V, row0, rows, known,
+        idx, out, stream);
 }

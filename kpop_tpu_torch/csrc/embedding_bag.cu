@@ -90,6 +90,13 @@
 // slots or the sorted limbs of wide_lookup.cuh in place of the LUT; every
 // later stage is the same.
 //
+// The 2-bit wire (kpop_embedding_bag_packed, kpop_embedding_bag_wide_packed;
+// DNA only): bag_histogram, the one stage that reads the read sets, reads
+// each base from the packed and validity bytes (wide_lookup.cuh::
+// PackedWire); a pass of GROUP read sets starts at their rows of both;
+// every later stage is the same, so the result is the int8 entry points'
+// bit for bit.
+//
 // bf16 twisters (row type 1; kpop-classify --dtype bf16, the JAX
 // package's project_reads on a bf16 twister, whose scan widens each
 // gathered row to f32 and sums in f32).  Row v starts at element v ld
@@ -194,11 +201,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // that fall in one bucket pool their atomic (a read that repeats a k-mer
 // sends every window to one bucket); buckets smaller than a tile spread
 // the atomics over more counters.
-template <class Find>
+template <class Wire, class Find>
 __global__ void __launch_bounds__(HIST_THREADS, 4)
-bag_histogram(const int8_t* __restrict__ codes, int L, int k, int canonical, int base,
-              const Find find, int V, int* __restrict__ vt,
-              int* __restrict__ hist, int* __restrict__ n_known) {
+bag_histogram(const typename Wire::Byte* __restrict__ bases, const uint8_t* __restrict__ valid,
+              int L, int k, int canonical, int base, const Find find, int V,
+              int* __restrict__ vt, int* __restrict__ hist, int* __restrict__ n_known) {
     __shared__ int staged[HIST_THREADS * (HIST_PER + 1)];
     __shared__ int block_known;
     const int b = blockIdx.y;
@@ -207,7 +214,7 @@ bag_histogram(const int8_t* __restrict__ codes, int L, int k, int canonical, int
     const int lane = threadIdx.x & 31;
     if (threadIdx.x == 0) block_known = 0;
     int v[HIST_PER];
-    kpop::window_rows<HIST_PER>(codes + (size_t)b * L, L, k, canonical, base, find,
+    kpop::window_rows<HIST_PER>(Wire::row(bases, valid, L, b), k, canonical, base, find,
                                 first + (int)threadIdx.x * HIST_PER, W, v);
     int known = 0;
 #pragma unroll
@@ -918,10 +925,11 @@ __global__ void bag_slice_sum(const float* __restrict__ ws, int S, int B, int d,
 // entries 1 int; fwork S min(B, GROUP) d floats.  The twister must start
 // on 16 bytes; its row v starts at element v ld (ld >= d, a multiple of 8
 // for bf16 rows).
-template <class Find, typename Tw>
-int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int base,
-                  const Find& find, int V, const Tw* twister, int d, int ld, int normalize,
-                  int S, int* iwork, float* fwork, float* out, void* stream) {
+template <class Wire, class Find, typename Tw>
+int embedding_bag(const typename Wire::Byte* bases, const uint8_t* valid, int B, int L, int k,
+                  int canonical, int base, const Find& find, int V, const Tw* twister, int d,
+                  int ld, int normalize, int S, int* iwork, float* fwork, float* out,
+                  void* stream) {
     if (B <= 0 || d <= 0) return (int)cudaGetLastError();
     if (L < k || V <= 0 || S <= 0 || S > 65535 || ld < d || (WORD_READS<Tw> && ld % 8) ||
         reinterpret_cast<uintptr_t>(twister) % 16 || reinterpret_cast<uintptr_t>(iwork) % 16)
@@ -970,9 +978,9 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
         const dim3 bgrid(hist_blocks, Bg);
         if ((err = cudaMemsetAsync(bkt, 0, (size_t)CNT * T * 4, st)) != cudaSuccess) return (int)err;
         if ((err = cudaMemsetAsync(n_known, 0, (GROUP + 2) * 4, st)) != cudaSuccess) return (int)err;
-        bag_histogram<Find><<<bgrid, HIST_THREADS, 0, st>>>(codes + (size_t)g0 * L, L, k,
-                                                            canonical, base, find, V, vt, bkt,
-                                                            n_known);
+        bag_histogram<Wire, Find><<<bgrid, HIST_THREADS, 0, st>>>(
+            bases + g0 * Wire::base_stride(L), valid + g0 * Wire::valid_stride(L), L, k, canonical,
+            base, find, V, vt, bkt, n_known);
         const int tile_blocks = (T + 255) / 256;
         bag_tile_sums<<<tile_blocks, 256, 0, st>>>(bkt, T, tot);
         bag_scan<<<1, SCAN_THREADS, 0, st>>>(tot, nz, kbase, n_nz, T);
@@ -995,20 +1003,20 @@ int embedding_bag(const int8_t* codes, int B, int L, int k, int canonical, int b
 }
 
 // the twister's row type: 0 f32, 1 bf16
-template <class Find>
-int embedding_bag_rows(const int8_t* codes, int B, int L, int k, int canonical, int base,
-                       const Find& find, int V, const void* twister, int row_type, int d, int ld,
-                       int normalize, int S, int* iwork, float* fwork, float* out,
-                       void* stream) {
+template <class Wire, class Find>
+int embedding_bag_rows(const typename Wire::Byte* bases, const uint8_t* valid, int B, int L,
+                       int k, int canonical, int base, const Find& find, int V,
+                       const void* twister, int row_type, int d, int ld, int normalize, int S,
+                       int* iwork, float* fwork, float* out, void* stream) {
     switch (row_type) {
         case 0:
-            return embedding_bag(codes, B, L, k, canonical, base, find, V,
-                                 static_cast<const float*>(twister), d, ld, normalize, S, iwork,
-                                 fwork, out, stream);
+            return embedding_bag<Wire>(bases, valid, B, L, k, canonical, base, find, V,
+                                       static_cast<const float*>(twister), d, ld, normalize, S,
+                                       iwork, fwork, out, stream);
         case 1:
-            return embedding_bag(codes, B, L, k, canonical, base, find, V,
-                                 static_cast<const uint16_t*>(twister), d, ld, normalize, S, iwork,
-                                 fwork, out, stream);
+            return embedding_bag<Wire>(bases, valid, B, L, k, canonical, base, find, V,
+                                       static_cast<const uint16_t*>(twister), d, ld, normalize, S,
+                                       iwork, fwork, out, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -1016,14 +1024,16 @@ int embedding_bag_rows(const int8_t* codes, int B, int L, int k, int canonical, 
 
 }  // namespace
 
-// k up to lut_k_max: lut is the dense [base^k + 1] table
+// k up to lut_k_max: codes [B, L] int8; lut is the dense [base^k + 1]
+// table
 extern "C" int kpop_embedding_bag(const int8_t* codes, int B, int L, int k,
                                   int canonical, int base, const int32_t* lut,
                                   int V, const void* twister, int row_type, int d, int ld,
                                   int normalize, int S, int* iwork,
                                   float* fwork, float* out, void* stream) {
-    return embedding_bag_rows(codes, B, L, k, canonical, base, kpop::LutFind{lut, V}, V,
-                              twister, row_type, d, ld, normalize, S, iwork, fwork, out, stream);
+    return embedding_bag_rows<kpop::CodeWire>(codes, nullptr, B, L, k, canonical, base,
+                                              kpop::LutFind{lut, V}, V, twister, row_type, d, ld,
+                                              normalize, S, iwork, fwork, out, stream);
 }
 
 // larger k: the cuckoo hash's probe layout (ops/cuckoo.py::probe_table) of
@@ -1037,11 +1047,37 @@ extern "C" int kpop_embedding_bag_wide(const int8_t* codes, int B, int L, int k,
                                        int normalize,
                                        int S, int* iwork, float* fwork, float* out,
                                        void* stream) {
-    if (k > 32 || !probe == !limbs || (probe && (slots & (slots - 1))) ||
-        reinterpret_cast<uintptr_t>(probe) % 16 || reinterpret_cast<uintptr_t>(limbs) % 8)
-        return (int)cudaErrorInvalidValue;
-    return embedding_bag_rows(codes, B, L, k, canonical, base,
-                              kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V),
-                              V, twister, row_type, d, ld, normalize, S, iwork, fwork, out,
-                              stream);
+    if (!kpop::wide_args_ok(k, probe, slots, limbs)) return (int)cudaErrorInvalidValue;
+    return embedding_bag_rows<kpop::CodeWire>(
+        codes, nullptr, B, L, k, canonical, base,
+        kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V), V, twister, row_type,
+        d, ld, normalize, S, iwork, fwork, out, stream);
+}
+
+// The same two on the 2-bit wire (DNA, base 4): packed [B, (L + 3) / 4]
+// and valid [B, (L + 7) / 8] bytes in place of the codes
+extern "C" int kpop_embedding_bag_packed(const uint8_t* packed, const uint8_t* valid, int B,
+                                         int L, int k, int canonical, int base,
+                                         const int32_t* lut, int V, const void* twister,
+                                         int row_type, int d, int ld, int normalize, int S,
+                                         int* iwork, float* fwork, float* out, void* stream) {
+    if (base != 4) return (int)cudaErrorInvalidValue;
+    return embedding_bag_rows<kpop::PackedWire>(packed, valid, B, L, k, canonical, base,
+                                                kpop::LutFind{lut, V}, V, twister, row_type, d,
+                                                ld, normalize, S, iwork, fwork, out, stream);
+}
+
+extern "C" int kpop_embedding_bag_wide_packed(const uint8_t* packed, const uint8_t* valid, int B,
+                                              int L, int k, int canonical, int base, int k_lo,
+                                              const int32_t* probe, int slots, uint32_t a1,
+                                              uint32_t b1, uint32_t a2, uint32_t b2,
+                                              const int32_t* limbs, int V, const void* twister,
+                                              int row_type, int d, int ld, int normalize, int S,
+                                              int* iwork, float* fwork, float* out,
+                                              void* stream) {
+    if (base != 4 || !kpop::wide_args_ok(k, probe, slots, limbs)) return (int)cudaErrorInvalidValue;
+    return embedding_bag_rows<kpop::PackedWire>(
+        packed, valid, B, L, k, canonical, base,
+        kpop::wide_find(base, k_lo, probe, slots, a1, b1, a2, b2, limbs, V), V, twister, row_type,
+        d, ld, normalize, S, iwork, fwork, out, stream);
 }

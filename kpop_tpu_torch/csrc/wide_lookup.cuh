@@ -186,16 +186,70 @@ inline WideFind wide_find(int base, int k_lo, const int32_t* probe, int slots, u
     return f;
 }
 
-// The rows of the RUN windows w0 .. w0 + RUN - 1 of the read set at s (L
-// bases, W = L - k + 1 windows): V past W, for a window that touches a
-// base outside [0, base) (a -1 break) and for a k-mer outside the
-// vocabulary.  One rolling forward code (and, for canonical DNA, reverse
-// complement: its 2 bits a base shifted in at the top) over the RUN
-// windows; the canonical code is the smaller one.
-template <int RUN, class Find>
-__device__ __forceinline__ void window_rows(const int8_t* __restrict__ s, int L, int k,
-                                            int canonical, int base, const Find& find, int w0,
-                                            int W, int (&out)[RUN]) {
+// A wide entry point's vocabulary arguments, checked: k within the uint64
+// code, the probe layout (its slots a power of 2, on 16 bytes) or the
+// sorted limbs (on 8 bytes), one of the two
+inline bool wide_args_ok(int k, const int32_t* probe, int slots, const int32_t* limbs) {
+    return k <= 32 && !probe != !limbs && !(probe && (slots & (slots - 1))) &&
+           reinterpret_cast<uintptr_t>(probe) % 16 == 0 && reinterpret_cast<uintptr_t>(limbs) % 8 == 0;
+}
+
+// The wires a kernel reads its read sets from, B rows of L bases each.  A
+// kernel takes a wire's two byte arrays as __restrict__ parameters (the
+// bases, and the validity bits, null for CodeWire), so its loads are
+// read-only as the int8 codes' were before the packed wire, and makes the
+// wire of read set b by row(bases, valid, L, b).  Row r starts r
+// base_stride(L) bytes into the bases and r valid_stride(L) into the
+// validity bits (a row group's first read set).  at(j) is the base at
+// position j, -1 past L or where it is no base.
+//
+// CodeWire: one int8 code a base (A=0 C=1 G=2 T=3, protein 0..19, -1 a
+// break or padding).
+struct CodeWire {
+    using Byte = int8_t;
+    const int8_t* codes;
+    int L;
+    __host__ __device__ static size_t base_stride(int L) { return (size_t)L; }
+    __host__ __device__ static size_t valid_stride(int) { return 0; }
+    __device__ static CodeWire row(const int8_t* codes, const uint8_t*, int L, int b) {
+        return {codes + (size_t)b * L, L};
+    }
+    __device__ __forceinline__ int at(int j) const { return j < L ? codes[j] : -1; }
+};
+
+// PackedWire: the 2-bit wire of kpop_tpu_torch/native pack_2bit_batch
+// (DNA only): base j in bits 2 (j & 3) of packed byte j >> 2; it is a base
+// where bit j & 7 of valid byte j >> 3 is set.  Replaces
+// kpop_tpu/ops/encode.py::unpack_2bit_batch, which XLA ran on the TPU as a
+// pass of its own that wrote [B, L] int32 codes: here a base is unpacked
+// where the rolling code reads it, so the card reads 3/8 of a byte a base
+// and writes no codes.
+struct PackedWire {
+    using Byte = uint8_t;
+    const uint8_t* packed;
+    const uint8_t* valid;
+    int L;
+    __host__ __device__ static size_t base_stride(int L) { return (size_t)((L + 3) >> 2); }
+    __host__ __device__ static size_t valid_stride(int L) { return (size_t)((L + 7) >> 3); }
+    __device__ static PackedWire row(const uint8_t* packed, const uint8_t* valid, int L, int b) {
+        return {packed + b * base_stride(L), valid + b * valid_stride(L), L};
+    }
+    __device__ __forceinline__ int at(int j) const {
+        if (j >= L) return -1;
+        return (valid[j >> 3] >> (j & 7)) & 1 ? (packed[j >> 2] >> 2 * (j & 3)) & 3 : -1;
+    }
+};
+
+// The rows of the RUN windows w0 .. w0 + RUN - 1 of the read set s (L
+// bases, W = L - k + 1 windows): V past W, for a window
+// that touches a base outside [0, base) (a -1 break) and for a k-mer
+// outside the vocabulary.  One rolling forward code (and, for canonical
+// DNA, reverse complement: its 2 bits a base shifted in at the top) over
+// the RUN windows; the canonical code is the smaller one.  One body for
+// both wires, as for both code widths.
+template <int RUN, class Wire, class Find>
+__device__ __forceinline__ void window_rows(const Wire& s, int k, int canonical, int base,
+                                            const Find& find, int w0, int W, int (&out)[RUN]) {
     using Code = typename Find::Code;
     Code top = 1;  // base^(k-1)
     for (int j = 1; j < k; ++j) top *= base;
@@ -204,7 +258,7 @@ __device__ __forceinline__ void window_rows(const int8_t* __restrict__ s, int L,
     Code fwd = 0, rc = 0;
     int last_bad = w0 - 1;
     auto push = [&](int j) {
-        int c = j < L ? s[j] : -1;
+        int c = s.at(j);
         if (c < 0 || c >= base) {
             last_bad = j;
             c = 0;

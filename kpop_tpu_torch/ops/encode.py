@@ -13,9 +13,16 @@ table) and :func:`window_codes_batch_wide` (two-limb codes for any k the
 reference counts, looked up in a cuckoo hash or by
 :func:`searchsorted_2limb`) are the plain PyTorch versions they are tested
 against.
+
+DNA read sets may also travel on the 2-bit wire of
+``native.pack_2bit_batch`` (:func:`pack_reads_2bit`, :class:`PackedReads`):
+3/8 of a byte a base where the codes take one.  The kernels read it as it
+is; :func:`unpack_2bit_batch` is its plain version.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -185,3 +192,92 @@ def encode_reads_host(
     for i, e in enumerate(encoded):
         out[i, : min(len(e), L)] = e[:L]
     return out
+
+
+def packed_strides(length: int) -> tuple[int, int]:
+    """The row strides of the 2-bit wire for read sets of ``length``
+    bases: ``(packed bytes, valid bytes)``, 4 bases and 8 validity bits a
+    byte."""
+    return (length + 3) // 4, (length + 7) // 8
+
+
+class PackedReads(NamedTuple):
+    """``B`` read sets of ``length`` bases on the 2-bit wire: ``packed [B,
+    (length + 3) // 4]`` u8 (base ``j`` in bits ``2 (j & 3)`` of byte ``j
+    >> 2``) and ``valid [B, (length + 7) // 8]`` u8 (bit ``j & 7`` of byte
+    ``j >> 3`` set where position ``j`` is a base).  DNA only: a base takes
+    2 bits.  ``count_spectra`` and ``project_reads`` take it in place of
+    ``[B, length]`` int8 codes."""
+
+    packed: torch.Tensor
+    valid: torch.Tensor
+    length: int
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.packed.shape[0], self.length)
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+
+def unpack_2bit_batch(packed: torch.Tensor, valid: torch.Tensor, length: int) -> torch.Tensor:
+    """The 2-bit wire -> ``[B, length]`` int8 base codes, -1 where a
+    position is no base: the counterpart of
+    ``kpop_tpu/ops/encode.py::unpack_2bit_batch`` (which returns int32), in
+    the dtype the port's kernels take.  The plain version of the kernels'
+    packed reads."""
+    j = torch.arange(length, device=packed.device)
+    base = (packed[:, j >> 2].to(torch.int32) >> ((j & 3) * 2)) & 3
+    ok = (valid[:, j >> 3].to(torch.int32) >> (j & 7)) & 1
+    return torch.where(ok == 1, base, -1).to(torch.int8)
+
+
+def as_codes(reads) -> torch.Tensor:
+    """``[B, L]`` int8 codes of int8 codes or :class:`PackedReads`."""
+    if isinstance(reads, PackedReads):
+        return unpack_2bit_batch(*reads)
+    return reads
+
+
+def pack_reads_2bit(codes: np.ndarray, base: int = 4) -> tuple[np.ndarray, np.ndarray]:
+    """``[B, L]`` int8 base codes -> the 2-bit wire ``(packed [B, (L + 3)
+    // 4], valid [B, (L + 7) // 8])`` u8, as ``native.pack_2bit_batch``
+    writes it (numpy, with the same bytes, where the library is missing).
+    DNA only: the packer ORs a code above 3 into its neighbours' bits, so
+    any other alphabet raises."""
+    if base != 4:
+        raise ValueError(f"the 2-bit wire holds DNA bases (base 4), not base {base}")
+    from .. import native
+
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    if native.available():
+        return native.pack_2bit_batch(codes)
+    n, L = codes.shape
+    ps, _vs = packed_strides(L)
+    ok = codes >= 0
+    c = np.zeros((n, 4 * ps), dtype=np.uint8)
+    c[:, :L] = np.where(ok, codes, 0).astype(np.uint8)
+    packed = np.zeros((n, ps), dtype=np.uint8)
+    for i in range(4):  # uint8 shifts: a code's bits above the byte drop, as in C
+        packed |= c[:, i::4] << np.uint8(2 * i)
+    return packed, np.packbits(ok, axis=1, bitorder="little")
+
+
+def spectra_from_codes(
+    window_codes: torch.Tensor,
+    valid: torch.Tensor,
+    n_kmers: int,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Window codes ``[B, W]`` with their validity ``[B, W]`` -> dense
+    spectra ``[B, n_kmers]``: the counterpart of
+    ``kpop_tpu/ops/encode.py::spectra_from_codes``.  Invalid windows go to a
+    trash column, which is dropped; plain PyTorch (``index_add_``)."""
+    B, W = window_codes.shape
+    tgt = torch.where(valid, window_codes.long(), n_kmers)
+    tgt = tgt + torch.arange(B, device=tgt.device)[:, None] * (n_kmers + 1)
+    out = torch.zeros(B * (n_kmers + 1), dtype=dtype, device=window_codes.device)
+    out.index_add_(0, tgt.reshape(-1), torch.ones(B * W, dtype=dtype, device=out.device))
+    return out.view(B, n_kmers + 1)[:, :n_kmers]

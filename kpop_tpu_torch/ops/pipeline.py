@@ -31,7 +31,10 @@ table; above it (DNA k up to 30, protein up to 12) its two int32 limbs are
 looked up in a cuckoo hash or, when the hash could not be built, by binary
 search in the sorted limbs.  The count and the bag each have a second C
 entry point for that lookup (``kpop_count_spectra_wide``,
-``kpop_embedding_bag_wide``; ``csrc/wide_lookup.cuh``).
+``kpop_embedding_bag_wide``; ``csrc/wide_lookup.cuh``).  DNA read sets
+may come on the 2-bit wire (:class:`~.encode.PackedReads`, 3/8 of a byte
+a base): each of the four entry points has a ``_packed`` twin that reads
+it as it is, with the same result (:func:`classify_step_packed`).
 """
 
 from __future__ import annotations
@@ -47,7 +50,10 @@ from ..core.twister import Twister
 from .. import _build
 from .cuckoo import build_cuckoo, cuckoo_lookup_ref, probe_table
 from .encode import (
+    PackedReads,
+    as_codes,
     lut_k_max,
+    packed_strides,
     searchsorted_2limb,
     split_k,
     window_codes_batch,
@@ -420,16 +426,42 @@ def vocab_lookup(params: ClassifierParams, base_codes: torch.Tensor) -> torch.Te
     return torch.where(ok, idx, torch.full_like(idx, V))
 
 
-def _check_codes(name: str, params: ClassifierParams, base_codes: torch.Tensor):
-    if base_codes.dim() != 2 or base_codes.dtype != torch.int8:
+def _check_codes(name: str, params: ClassifierParams, reads):
+    """``(B, L)`` of int8 codes ``[B, L]`` or :class:`~.encode.PackedReads`,
+    checked: on the 2-bit wire, u8 tensors on one device whose strides
+    match ``L``, and DNA (base 4)."""
+    if isinstance(reads, PackedReads):
+        packed, valid, L = reads
+        ps, vs = packed_strides(L)
+        if packed.dtype != torch.uint8 or valid.dtype != torch.uint8 or packed.dim() != 2 \
+                or packed.shape[1] != ps or valid.shape != (packed.shape[0], vs):
+            raise TypeError(
+                f"{name}: packed reads of length {L} must be u8 [B, {ps}] and [B, {vs}], got "
+                f"{packed.dtype} {tuple(packed.shape)} and {valid.dtype} {tuple(valid.shape)}"
+            )
+        if valid.device != packed.device or not (packed.is_contiguous() and valid.is_contiguous()):
+            raise ValueError(f"{name}: packed and valid must be contiguous, on one device")
+        if params.base != 4:
+            raise ValueError(f"{name}: the 2-bit wire holds DNA, not base {params.base}")
+    elif reads.dim() != 2 or reads.dtype != torch.int8:
         raise TypeError(
             f"{name}: base codes must be a [B, L] int8 tensor, got "
-            f"{base_codes.dtype} {tuple(base_codes.shape)}"
+            f"{reads.dtype} {tuple(reads.shape)}"
         )
-    B, L = base_codes.shape
+    B, L = reads.shape
     if L < params.k:
         raise ValueError(f"sequences shorter than k: L={L}, k={params.k}")
     return B, L
+
+
+def wire_args(reads, b0: int = 0) -> tuple[str, tuple]:
+    """The C entry point's wire suffix and its read-set pointers from read
+    set ``b0`` on: ``("", (codes,))`` for int8 codes, ``("_packed",
+    (packed, valid))`` for the 2-bit wire, each at its own row stride."""
+    if isinstance(reads, PackedReads):
+        ps, vs = packed_strides(reads.length)
+        return "_packed", (reads.packed.data_ptr() + b0 * ps, reads.valid.data_ptr() + b0 * vs)
+    return "", (reads.data_ptr() + b0 * reads.shape[1],)
 
 
 def _row_range(params: ClassifierParams, row0: int, rows: int | None) -> int:
@@ -516,12 +548,13 @@ def bag_row_groups(B: int, W: int) -> list[tuple[int, int]]:
     return [(0, B)] if rows >= BAG_GROUP else row_groups(B, rows)
 
 
-def count_spectra(params: ClassifierParams, base_codes: torch.Tensor, row0: int = 0,
+def count_spectra(params: ClassifierParams, base_codes, row0: int = 0,
                   rows: int | None = None, known: bool = False):
-    """``[B, L]`` int8 base codes -> vocabulary-aligned spectra ``[B, V]``
-    f32.  Counts are exact (integers below 2^24 per cell).  Read sets with
-    2^24 windows or more raise: there the JAX package's f32 count of known
-    windows is not exact either.  A batch above :data:`COUNT_MAX_ROWS`
+    """``[B, L]`` int8 base codes, or DNA read sets on the 2-bit wire
+    (:class:`~.encode.PackedReads`), -> vocabulary-aligned spectra ``[B,
+    V]`` f32, the same from either.  Counts are exact (integers below 2^24
+    per cell).  Read sets with 2^24 windows or more raise: there the JAX
+    package's f32 count of known windows is not exact either.  A batch above :data:`COUNT_MAX_ROWS`
     read sets is counted in groups (:func:`count_row_groups`).
 
     ``row0`` and ``rows`` count only the vocabulary rows ``[row0, row0 +
@@ -536,10 +569,13 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor, row0: int 
     (:func:`count_scratch_ints`), then one wave of blocks takes the
     (vocabulary slice, read set) tasks (:func:`count_tasks`), counts each
     in shared memory (:func:`count_plan`) and writes its slice whole, so
-    the output needs no zeroing."""
+    the output needs no zeroing.  The 2-bit wire takes the kernel's
+    ``_packed`` entry points, which read each base from the packed bytes
+    where the int8 ones read a code; on the CPU it is unpacked
+    (:func:`~.encode.unpack_2bit_batch`) for the plain version."""
     B, L = _check_codes("count_spectra", params, base_codes)
     if base_codes.device.type == "cpu":
-        return count_spectra_ref(params, base_codes, row0, rows, known)
+        return count_spectra_ref(params, as_codes(base_codes), row0, rows, known)
     rows = _row_range(params, row0, rows)
     suffix, vocab = vocab_args("count_spectra", params, base_codes)
     W = L - params.k + 1
@@ -554,11 +590,12 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor, row0: int 
     scratch = torch.empty(count_scratch_ints(Bg, L, params.k), dtype=torch.int32, device=dev)
     out = torch.empty((B, rows), dtype=torch.float32, device=dev)
     n_known = torch.empty(B, dtype=torch.int32, device=dev) if known else None
-    codes_p, out_p = base_codes.data_ptr(), out.data_ptr()
-    for b0, b1 in groups:  # each group from and into its rows (int8 codes, f32 out)
+    out_p = out.data_ptr()
+    for b0, b1 in groups:  # each group from and into its rows (f32 out)
+        wire, reads = wire_args(base_codes, b0)
         _build.launch(
-            "kpop_count_spectra" + suffix,
-            codes_p + b0 * L, b1 - b0, L, params.k, int(params.canonical),
+            "kpop_count_spectra" + suffix + wire,
+            *reads, b1 - b0, L, params.k, int(params.canonical),
             params.base, *vocab, V, row0, rows, int(known), scratch.data_ptr(),
             out_p + 4 * b0 * rows,
         )
@@ -569,23 +606,31 @@ def count_spectra(params: ClassifierParams, base_codes: torch.Tensor, row0: int 
     return (out, n_known) if known else out
 
 
-def vocab_args(name: str, params: ClassifierParams, base_codes: torch.Tensor):
+def vocab_args(name: str, params: ClassifierParams, base_codes):
     """The C entry point's suffix and its vocabulary arguments, after
-    checking the tensors' devices and dtypes: ``("", (lut,))`` for the
-    dense table, else ``("_wide", (k_lo, probe, slots, a1, b1, a2, b2,
-    limbs))`` with a null pointer for the lookup not taken (``probe``: the
-    cuckoo table's :func:`~.cuckoo.probe_table` layout; ``limbs``: the
-    sorted ``[V, 2]`` limbs)."""
+    checking the tensors' devices and dtypes (the read sets': int8 codes or
+    the 2-bit wire's u8 pair): ``("", (lut,))`` for the dense table, else
+    ``("_wide", (k_lo, probe, slots, a1, b1, a2, b2, limbs))`` with a null
+    pointer for the lookup not taken (``probe``: the cuckoo table's
+    :func:`~.cuckoo.probe_table` layout; ``limbs``: the sorted ``[V, 2]``
+    limbs)."""
+    if isinstance(base_codes, PackedReads):
+        reads, dtypes = (base_codes.packed, base_codes.valid), (torch.uint8, torch.uint8)
+    else:
+        reads, dtypes = (base_codes,), (torch.int8,)
     if params.vocab_lut is not None:
-        _build.check_cuda(name, base_codes, params.vocab_lut, dtypes=(torch.int8, torch.int32))
-        return "", (params.vocab_lut.data_ptr(),)
-    _k_hi, k_lo = split_k(params.k, params.base)
-    if params.cuckoo is not None:
-        _build.check_cuda(name, base_codes, params.cuckoo_probe, dtypes=(torch.int8, torch.int32))
-        return "_wide", (k_lo, params.cuckoo_probe.data_ptr(), params.cuckoo.shape[1],
-                         *params.cuckoo_seeds, None)
-    _build.check_cuda(name, base_codes, params.vocab_limbs, dtypes=(torch.int8, torch.int32))
-    return "_wide", (k_lo, None, 0, 0, 0, 0, 0, params.vocab_limbs.data_ptr())
+        table, suffix, vocab = params.vocab_lut, "", (params.vocab_lut.data_ptr(),)
+    else:
+        _k_hi, k_lo = split_k(params.k, params.base)
+        if params.cuckoo is not None:
+            table, suffix = params.cuckoo_probe, "_wide"
+            vocab = (k_lo, params.cuckoo_probe.data_ptr(), params.cuckoo.shape[1],
+                     *params.cuckoo_seeds, None)
+        else:
+            table, suffix = params.vocab_limbs, "_wide"
+            vocab = (k_lo, None, 0, 0, 0, 0, 0, params.vocab_limbs.data_ptr())
+    _build.check_cuda(name, *reads, table, dtypes=(*dtypes, torch.int32))
+    return suffix, vocab
 
 
 def check_whole_twister(name: str, params: ClassifierParams) -> None:
@@ -660,9 +705,7 @@ def bag_plan(V: int, d: int, n_sm: int = H100_SMS) -> int:
     return max(1, min(-(-V // BAG_TILE_ROWS), 65535, n_sm // col_blocks))
 
 
-def project_reads(
-    params: ClassifierParams, base_codes: torch.Tensor, normalize: bool = True
-) -> torch.Tensor:
+def project_reads(params: ClassifierParams, base_codes, normalize: bool = True) -> torch.Tensor:
     """Reads -> twisted coordinates ``[B, d]`` without spectra:
     ``twisted[b] = sum_w twister[lut[code_w]] / n_known`` (unknown k-mers
     drop out, duplicates accumulate; lib/Twister.ml:146-188).
@@ -681,11 +724,14 @@ def project_reads(
     :class:`ClassifierParams` lays them out so), or it raises.  Read sets
     with 2^24 windows or more raise (the JAX package's f32 count of known
     windows is not exact there either); read sets of more than 8,388,607
-    windows are taken in smaller groups (:func:`bag_row_groups`)."""
+    windows are taken in smaller groups (:func:`bag_row_groups`).  DNA read
+    sets on the 2-bit wire (:class:`~.encode.PackedReads`) take the
+    kernel's ``_packed`` entry points, with the same result; on the CPU
+    they are unpacked for the plain version."""
     B, L = _check_codes("project_reads", params, base_codes)
     check_whole_twister("project_reads", params)
     if base_codes.device.type == "cpu":
-        return project_reads_ref(params, base_codes, normalize)
+        return project_reads_ref(params, as_codes(base_codes), normalize)
     suffix, vocab = vocab_args("project_reads", params, base_codes)
     tw = params.twister
     if tw.device != base_codes.device or tw.stride(1) != 1 or tw.stride(0) < tw.shape[1]:
@@ -710,11 +756,12 @@ def project_reads(
     iwork = torch.empty(bag_workspace_ints(Bg, L, params.k, V), dtype=torch.int32, device=dev)
     fwork = torch.empty(S * Bg * d, dtype=torch.float32, device=dev)
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
-    codes_p, out_p = base_codes.data_ptr(), out.data_ptr()
-    for b0, b1 in groups:  # each group from and into its rows (int8 codes, f32 out)
+    out_p = out.data_ptr()
+    for b0, b1 in groups:  # each group from and into its rows (f32 out)
+        wire, reads = wire_args(base_codes, b0)
         _build.launch(
-            "kpop_embedding_bag" + suffix,
-            codes_p + b0 * L, b1 - b0, L, params.k, int(params.canonical),
+            "kpop_embedding_bag" + suffix + wire,
+            *reads, b1 - b0, L, params.k, int(params.canonical),
             params.base, *vocab, V,
             tw.data_ptr(), BAG_ROW_TYPES[tw.dtype], d, tw.stride(0), int(normalize),
             S, iwork.data_ptr(), fwork.data_ptr(), out_p + 4 * b0 * d,
@@ -802,14 +849,18 @@ def summarize_batch(dmat: torch.Tensor, req_len: int = 2):
     """Per-query digest (lib/Matrix.ml:632-690): mean, stddev (n-1), upper
     median (index C//2 of the sorted row), MAD of the same convention, and
     the ``req_len`` smallest distances with their indices.  ``torch.median``
-    returns the lower median, so the row is sorted and indexed instead."""
+    returns the lower median, so the row is sorted and indexed instead.
+    The nearest come from the same stable sort, so ties are taken lowest
+    index first, as the JAX package's ``lax.top_k(-dmat)`` takes them
+    (``torch.topk`` leaves their order unspecified)."""
     B, C = dmat.shape
     mean = dmat.mean(dim=1)
     stddev = torch.sqrt(((dmat - mean[:, None]) ** 2).sum(dim=1) / max(C - 1, 1))
-    median = torch.sort(dmat, dim=1).values[:, C // 2]
+    srt, order = torch.sort(dmat, dim=1, stable=True)
+    median = srt[:, C // 2]
     mad = torch.sort(torch.abs(dmat - median[:, None]), dim=1).values[:, C // 2]
-    top, idx = torch.topk(dmat, min(req_len, C), dim=1, largest=False, sorted=True)
-    return mean, stddev, median, mad, top, idx
+    r = min(req_len, C)
+    return mean, stddev, median, mad, srt[:, :r], order[:, :r]
 
 
 def classify_step(
@@ -836,7 +887,36 @@ def classify_step(
     return (*summarize_batch(dmat, req_len), twisted)
 
 
-def _forward_step(params: ClassifierParams, base_codes: torch.Tensor, req_len: int):
+def classify_step_packed(
+    vocab_lut,
+    twister,
+    metric,
+    class_coords,
+    class_norms,
+    packed,
+    valid,
+    *,
+    length: int,
+    k: int,
+    canonical: bool,
+    normalize: bool = True,
+    req_len: int = 2,
+):
+    """:func:`classify_step` on DNA read sets of ``length`` bases on the
+    2-bit wire (``packed``, ``valid``: :class:`~.encode.PackedReads`), the
+    counterpart of ``bench.py``'s ``step_packed``: the kernels read the
+    wire as it is, where the JAX package unpacks it first.  The same
+    tuple."""
+    params = ClassifierParams(
+        vocab_lut, twister, metric, class_coords, class_norms, k, canonical
+    )
+    reads = PackedReads(packed, valid, length)
+    twisted = project(params, count_spectra(params, reads), normalize=normalize)
+    dmat = distances_to_classes(params, twisted, normalize=normalize)
+    return (*summarize_batch(dmat, req_len), twisted)
+
+
+def _forward_step(params: ClassifierParams, base_codes, req_len: int):
     spectra = count_spectra(params, base_codes)
     twisted = project(params, spectra)
     dmat = distances_to_classes(params, twisted)
@@ -858,4 +938,17 @@ class TorchClassifier:
             device=self.params.twister.device,
         )
         out = _forward_step(self.params, codes, self.req_len)
+        return tuple(t.cpu().numpy() for t in out)
+
+    def classify_packed(self, packed: np.ndarray, valid: np.ndarray, length: int):
+        """:meth:`classify_codes` of DNA read sets of ``length`` bases on
+        the 2-bit wire (:func:`~.encode.pack_reads_2bit`); the same
+        tuple."""
+        dev = self.params.twister.device
+        reads = PackedReads(
+            *(torch.as_tensor(np.ascontiguousarray(a, dtype=np.uint8), device=dev)
+              for a in (packed, valid)),
+            length,
+        )
+        out = _forward_step(self.params, reads, self.req_len)
         return tuple(t.cpu().numpy() for t in out)

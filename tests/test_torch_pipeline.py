@@ -198,6 +198,22 @@ def test_summarize_batch(C):
     np.testing.assert_array_equal(got[2], srt[:, C // 2])  # upper median
 
 
+@pytest.mark.parametrize("C", [5, 64, 2048])
+def test_summarize_batch_ties_in_index_order_as_jax(C):
+    """Integer-valued rows tie often: the nearest classes come lowest index
+    first, as lax.top_k(-dmat) returns them, so the indices equal JAX's."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    dmat = rng.integers(0, max(2, C // 4), size=(64, C)).astype(np.float32)
+    want = [np.asarray(x) for x in jp.summarize_batch(jnp.asarray(dmat), 2)]
+    got = [x.numpy() for x in tp.summarize_batch(torch.from_numpy(dmat), 2)]
+    np.testing.assert_array_equal(got[5], want[5])
+    for g, w, name in zip(got[:5], want[:5], ("mean", "std", "median", "mad", "top")):
+        np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=name)
+    assert (np.diff(np.sort(dmat, axis=1)[:, :2], axis=1) == 0).any()  # the rows do tie
+
+
 def test_summarize_batch_upper_median():
     dmat = torch.tensor([[1.0, 2.0, 3.0, 4.0]])
     _, _, median, mad, _, _ = tp.summarize_batch(dmat)
