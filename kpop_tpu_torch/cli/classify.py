@@ -29,6 +29,7 @@ tool on one device.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
 
@@ -49,7 +50,7 @@ from ..utils.cli import Args, ParseError, Parser
 from ..utils.naming import SUMMARY_EXT, close_if_owned, open_out, with_ext
 from ..utils.progress import set_verbose
 
-from .. import __version__
+from .. import __version__, trace
 from ..config import device
 from ..parallel import distributed
 from ..parallel.mesh import Layout, all_gather_rows, make_mesh
@@ -183,38 +184,55 @@ class DeviceStep:
         self.device = params.twister.device
 
     def dispatch(self, seqs: list[str]):
-        p, mesh = self.params, self.mesh
-        codes = encode_reads_host(seqs, protein=p.base != 4)
-        n = codes.shape[0]
-        pad_rows, pad_cols = (-n) % mesh.dp, max(0, p.k - codes.shape[1])
-        if pad_rows or pad_cols:  # -1 pads: a break, counts nothing
-            codes = np.pad(codes, ((0, pad_rows), (0, pad_cols)), constant_values=-1)
-        b0, b1 = mesh.rows(codes.shape[0], "data")
-        codes = np.ascontiguousarray(codes[b0:b1])
-        if self.dmat is None and self.path == "auto":  # pinned on the first (full) batch
-            self.path = pick_path(
-                codes.shape[0], codes.shape[1] - p.k + 1, p.n_vocab, p.twister.shape[1]
-            )
-        group = mesh.data_host
-        if self.wire == "packed":
-            reads = self._upload_packed(codes)
-        elif self.device.type == "cpu":
-            reads = torch.from_numpy(codes)
-        else:
-            reads = torch.from_numpy(codes).pin_memory().to(self.device, non_blocking=True)
-        if self.device.type == "cpu":
-            return self._dmat(reads), None, n, group
-        dmat = self._dmat(reads)
-        host = torch.empty(dmat.shape, dtype=dmat.dtype, pin_memory=True)
-        host.copy_(dmat, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done, n, group
+        p, mesh, on_card = self.params, self.mesh, self.device.type != "cpu"
+        with trace.span("serve.dispatch"):
+            with trace.span("serve.encode"):
+                codes = encode_reads_host(seqs, protein=p.base != 4)
+            n = codes.shape[0]
+            with trace.span("serve.stage"):
+                pad_rows, pad_cols = (-n) % mesh.dp, max(0, p.k - codes.shape[1])
+                if pad_rows or pad_cols:  # -1 pads: a break, counts nothing
+                    codes = np.pad(codes, ((0, pad_rows), (0, pad_cols)), constant_values=-1)
+                b0, b1 = mesh.rows(codes.shape[0], "data")
+                codes = np.ascontiguousarray(codes[b0:b1])
+                if self.dmat is None and self.path == "auto":  # pinned on the first (full) batch
+                    self.path = pick_path(
+                        codes.shape[0], codes.shape[1] - p.k + 1, p.n_vocab, p.twister.shape[1]
+                    )
+                if self.wire == "packed":
+                    staged = self._stage_packed(codes)
+                else:
+                    staged = torch.from_numpy(codes)
+                    if on_card:
+                        staged = staged.pin_memory()
+            if on_card:
+                with trace.span("serve.upload"):
+                    reads = staged.to(self.device, non_blocking=True)
+            else:
+                reads = staged
+            if self.wire == "packed":
+                reads = self._packed_reads(reads, *codes.shape)
+            with trace.span("serve.launch"):
+                dmat = self._dmat(reads)
+            trace.count("serve.batches")
+            trace.count("serve.queries", n)
+            trace.count("serve.bases", sum(map(len, seqs)))
+            trace.count("serve.upload_bytes", staged.nbytes)
+            if self.dmat is None:
+                trace.count("serve.route." + self.path)
+            if not on_card:
+                return dmat, None, n, mesh.data_host
+            with trace.span("serve.download"):
+                host = torch.empty(dmat.shape, dtype=dmat.dtype, pin_memory=True)
+                host.copy_(dmat, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            return host, done, n, mesh.data_host
 
-    def _upload_packed(self, codes: np.ndarray) -> PackedReads:
+    def _stage_packed(self, codes: np.ndarray) -> torch.Tensor:
         """``[B, L]`` int8 codes packed on the host into one buffer (pinned
-        where the card takes it), packed bytes then validity bytes, and
-        uploaded by one copy that does not block."""
+        where the card takes it), packed bytes then validity bytes, for one
+        upload that does not block."""
         B, L = codes.shape
         ps, vs = packed_strides(L)
         staged = torch.empty(B * (ps + vs), dtype=torch.uint8,
@@ -223,7 +241,12 @@ class DeviceStep:
         host = staged.numpy()
         host[: B * ps] = packed.reshape(-1)
         host[B * ps:] = valid.reshape(-1)
-        wire = staged.to(self.device, non_blocking=True)
+        return staged
+
+    @staticmethod
+    def _packed_reads(wire: torch.Tensor, B: int, L: int) -> PackedReads:
+        """The read sets on a buffer that :meth:`_stage_packed` laid out."""
+        ps, vs = packed_strides(L)
         return PackedReads(wire[: B * ps].view(B, ps), wire[B * ps:].view(B, vs), L)
 
     def _dmat(self, base_codes) -> torch.Tensor:
@@ -234,11 +257,14 @@ class DeviceStep:
     @staticmethod
     def materialize(handle) -> np.ndarray:
         dmat, done, n, group = handle
-        if done is not None:
-            done.synchronize()
-        rows = all_gather_rows(dmat, group)
-        dmat = rows[0] if len(rows) == 1 else torch.cat(rows)
-        return dmat.numpy().astype(np.float64)[:n]
+        with trace.span("serve.materialize"):
+            if done is not None:
+                with trace.span("serve.wait"):
+                    done.synchronize()
+            with trace.span("serve.gather"):
+                rows = all_gather_rows(dmat, group)
+                dmat = rows[0] if len(rows) == 1 else torch.cat(rows)
+                return dmat.numpy().astype(np.float64)[:n]
 
 
 def layout_kmer_parallel(world: int, kmer_parallel: int, twister_bytes: int) -> int:
@@ -387,8 +413,10 @@ def main(argv=None) -> int:
            "builds spectra; 'auto' picks by estimated memory traffic"],
           set_project_path, "auto")
     p.opt(["--profile"], "<trace_directory>",
-          ["write a torch.profiler Chrome trace of the run into this",
-           "directory (kpop_classify_trace.json)"],
+          ["write a torch.profiler Chrome trace of the run, with the",
+           "serving step's kpop:serve.* ranges, into this directory",
+           "(kpop_classify_trace.json), and the step's counters beside",
+           "it (kpop_classify_counters.json)"],
           lambda a: state.update(profile=a.get()))
     p.opt(["-v", "--verbose"], None, ["set verbose execution"],
           lambda a: (state.update(verbose=True), set_verbose(True)))
@@ -490,10 +518,11 @@ def _classify(state: dict) -> int:
             tags, handle = pending
             pending = None
             dmat = materialize(handle)
-            for tag, row in zip(tags, dmat):
-                out.write(
-                    summarize_distance_row(req_len, tag, row, col_names) + "\n"
-                )
+            with trace.span("serve.format"):
+                for tag, row in zip(tags, dmat):
+                    out.write(
+                        summarize_distance_row(req_len, tag, row, col_names) + "\n"
+                    )
             n_done += len(tags)
             if state["verbose"]:
                 sys.stderr.write(f"(KPopClassify): {n_done} sequences\r")
@@ -520,6 +549,7 @@ def _classify(state: dict) -> int:
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
             prof = profile(activities=activities)
+            trace.reset()
         # segment separator must break k-mer windows: any character outside
         # the alphabet ('N' for DNA; protein uses '*' since N is a residue)
         sep = "N" if state["content"].startswith("DNA") else "*"
@@ -536,6 +566,8 @@ def _classify(state: dict) -> int:
             prof.export_chrome_trace(
                 os.path.join(state["profile"], "kpop_classify_trace.json")
             )
+            with open(os.path.join(state["profile"], "kpop_classify_counters.json"), "w") as f:
+                json.dump(trace.counters(), f, indent=1, sort_keys=True)
     finally:
         close_if_owned(out, out_path)
     if state["verbose"]:

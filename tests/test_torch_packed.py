@@ -285,7 +285,8 @@ def test_device_step_packed_equal_to_codes(trained, path, lookup):  # noqa: F811
     a, b = got.materialize(got.dispatch(seqs)), want.materialize(want.dispatch(seqs))
     assert a.shape == (len(seqs), tparams.class_coords.shape[0]) and np.isfinite(a).all()
     np.testing.assert_array_equal(a, b)
-    reads = got._upload_packed(te.encode_reads_host(seqs))
+    codes = te.encode_reads_host(seqs)
+    reads = got._packed_reads(got._stage_packed(codes), *codes.shape)
     ps, vs = te.packed_strides(reads.length)
     assert reads.valid.data_ptr() == reads.packed.data_ptr() + len(seqs) * ps  # one buffer
     assert reads.valid.shape == (len(seqs), vs)
