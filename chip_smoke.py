@@ -62,7 +62,11 @@ prints no result.  It imports nothing of JAX or of the JAX package
    the int8 entry point (the count also to its plain version, the bag
    within its tolerances of its plain version and float64), its time as
    called and its kernels' alone beside the int8 entry point's, and its
-   bound with the wire read at 3/8 of a byte a base;
+   bound with the wire read at 3/8 of a byte a base; and the card's encode
+   of raw bytes (``kpop_encode_bytes``) at the benchmark's read-set batch
+   (64 x 601,885 bytes with dashes), staged as the serving step stages
+   them, torch.equal to its plain version and to the host encoder's codes,
+   its time as called and alone, bound by the bytes read and written;
 4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
    tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
    at 1x coverage; vocabulary ~368k, d=511), trained on the card
@@ -70,14 +74,17 @@ prints no result.  It imports nothing of JAX or of the JAX package
    Gram, eigh and phi, the fit within tests/test_dd.py's bounds of the host
    float64 ``fit_ca``, and the peak device memory of the fit that streams
    phi to the host) and classified through the dense and the bag route
-   with parameters built around the device twister: top-1 accuracy >= 0.95
-   on each, every kernel launched, each route's device time a batch,
-   distances within 1e-4 of the host float64 chain, and the serving rate;
-   the same read sets served again on the 2-bit wire
-   (``DeviceStep(wire="packed")``), distances equal to the int8 wire's,
-   the packed entry points launched and the int8 ones not, and each
-   batch's host encode and pack ms and its upload bytes and ms on each
-   wire; the same table fitted again on the streamed path with its budget forced
+   with parameters built around the device twister, on the serving step's
+   default wire on a card (raw bytes, encoded on the card): top-1 accuracy
+   >= 0.95 on each, every kernel launched (the encode too), each route's
+   device time a batch, distances within 1e-4 of the host float64 chain,
+   and the serving rate on each wire; the same read sets served again as
+   int8 codes encoded on the host (``DeviceStep(wire="codes")``) and on the
+   2-bit wire (``DeviceStep(wire="packed")``), distances equal to the bytes
+   wire's, the packed entry points launched and the int8 ones not, neither
+   twin launching the encode, and each batch's staging, host encode and
+   pack ms and its upload bytes and ms on each wire; the same table
+   fitted again on the streamed path with its budget forced
    (STREAM_BLOCKS row blocks, phi on the host and on the card), within
    tests/test_dd.py's bounds of ``fit_ca``, its sv within 1e-10 of the
    resident fit's, its device memory within the budget, its uploads from
@@ -87,7 +94,7 @@ prints no result.  It imports nothing of JAX or of the JAX package
    served with a bf16 twister cast from the streamed fit's: accuracy >= 0.95
    on each, distances within 2e-2 x max(1, |x|) of the f32 route, no f32
    copy of the twister, and both routes again on the 2-bit wire, equal to
-   the bf16 int8 wire's;
+   the bf16 bytes wire's;
 5. cli: the README quick start trained by ``kpop-twist-torch`` with its
    default backend (the device CA), then through ``bin/kpop-classify-torch``
    (also with ``--dtype bf16``, its lines within 2e-2 x max(1, |x|) of the
@@ -110,9 +117,10 @@ prints no result.  It imports nothing of JAX or of the JAX package
    trained on the card on the streamed path with the budget forced (phi on
    the host, then ``phi="device"``), parameters built around the device
    twister with the cuckoo hash, phase 4's held-out read sets served on
-   both routes, on the int8 wire and on the 2-bit wire (equal distances):
-   top-1 accuracy >= 0.95 on each, the wide count, the wide bag and the
-   tile launched, each route's device time a batch, and the
+   both routes, on the bytes wire, as host-encoded int8 codes and on the
+   2-bit wire (equal distances): top-1 accuracy >= 0.95 on each, the wide
+   count, the wide bag and the tile launched (and the encode on the bytes
+   wire), each route's device time a batch, and the
    first batch within 1e-4 of the host float64 chain through the fit with
    phi on the host; then the twister cast to bf16 serves the bag route at
    accuracy >= 0.95, and the same bf16 parameters built from the host
@@ -132,10 +140,12 @@ prints no result.  It imports nothing of JAX or of the JAX package
    ``KPOP_PARAMS_HBM_BYTES=600000000``, on f32 and bf16 shards: accuracy >=
    0.95, the first batch within 1e-4 of the host float64 chain (bf16
    within 2e-2 x max(1, |x|) of f32), each rank's shard and device memory,
-   the launches of the main path summed over the ranks, the rate, and a
-   batch split into count, product, all-reduce (gloo: through the host)
-   and distances; the f32 ``--kmer-parallel`` layout served again on the
-   2-bit wire, its distances equal to the int8 wire's on every rank (path
+   the launches of the main path summed over the ranks (the encode among
+   them: the step takes the bytes wire), the rate, and a batch split into
+   the rank's rows staged and uploaded, the card's encode, count, product,
+   all-reduce (gloo: through the host) and distances; the f32
+   ``--kmer-parallel`` layout served again on the 2-bit wire, its
+   distances equal to the bytes wire's on every rank (path
    ``sharded_packed``); then the same at world size 1 over NCCL, whose
    all-reduce runs on the card.
 
@@ -189,14 +199,22 @@ F32_FLOPS = 67e12  # float32 outside the tensor cores
 TF32_FLOPS = 495e12  # TF32 on the tensor cores
 F64_TC_FLOPS = 67e12  # FP64 tensor cores
 F64_FLOPS = 34e12  # FP64 outside the tensor cores
-SLICE_KERNELS = ("kpop_count_spectra", "kpop_embedding_bag", "kpop_pairwise_dist")
+# the kernels each main path launches: on the bytes wire (DeviceStep's
+# default on a card) the card's encode too, on its "codes" twin not
+SLICE_CODES_KERNELS = ("kpop_count_spectra", "kpop_embedding_bag", "kpop_pairwise_dist")
+SLICE_KERNELS = SLICE_CODES_KERNELS + ("kpop_encode_bytes",)
+# phase 3's encode row: the read-set cell's batch of the benchmark, 64 rows
+# of 601,885 bytes
+ENCODE_B, ENCODE_L = 64, 601_885
 # phase 8: the count in the row ranges of COUNT_RANGES ranks
 COUNT_RANGES = 4
 # phase 7: phase 4's corpus counted at k = 16 (two limbs: k_hi 1, k_lo 15),
 # whose vocabulary the phase 3 wide rows take the size of
 LARGE_K = 16
 LARGE_K_VOCAB = 1_011_930
-LARGE_K_KERNELS = ("kpop_count_spectra_wide", "kpop_embedding_bag_wide", "kpop_pairwise_dist")
+LARGE_K_CODES_KERNELS = ("kpop_count_spectra_wide", "kpop_embedding_bag_wide",
+                         "kpop_pairwise_dist")
+LARGE_K_KERNELS = LARGE_K_CODES_KERNELS + ("kpop_encode_bytes",)
 # the 2-bit read wire: what each packed entry point replaces (the TPU's
 # unpack pass, then the count or the bag), and the kernels each packed main
 # path must launch
@@ -208,6 +226,13 @@ SLICE_PACKED_KERNELS = ("kpop_count_spectra_packed", "kpop_embedding_bag_packed"
                         "kpop_pairwise_dist")
 LARGE_K_PACKED_KERNELS = ("kpop_count_spectra_wide_packed", "kpop_embedding_bag_wide_packed",
                           "kpop_pairwise_dist")
+# what the default wire's twins must not launch: the packed wire none of the
+# int8 count and bag entry points, and neither twin the card's encode
+NOT_ON_WIRE = {
+    "packed": ("kpop_count_spectra", "kpop_count_spectra_wide", "kpop_embedding_bag",
+               "kpop_embedding_bag_wide", "kpop_encode_bytes"),
+    "codes": ("kpop_encode_bytes",),
+}
 # the device CA against the host float64 fit_ca: tests/test_dd.py:81-84
 CA_BOUNDS = dict(sv=1e-8, inertia=1e-8, coords=1e-6, twister=1e-5)
 # the streamed CA fit: the budget forced so that the table streams in
@@ -1467,6 +1492,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     del a, ones, na
     for r in rows.values():
         r.pop("out", None)
+    rows["encode_bytes"] = encode_bytes_row(dev)
     rows["row_digest"] = digest_row(dev, flagship)
     del flagship
     torch.cuda.empty_cache()
@@ -1481,6 +1507,68 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
                r["bound_ms"], r["bound_by"])
         )
     return rows
+
+
+def encode_bytes_row(dev) -> dict:
+    """``kpop_encode_bytes`` at the read-set cell's batch: ENCODE_B rows of
+    ENCODE_L bytes (ACGT, ``N`` joins, about 1 % of the bytes in runs of 8
+    dashes), staged by ``ByteRing`` and uploaded as
+    ``DeviceStep(wire="bytes")`` stages them; the wrapper's codes
+    torch.equal to ``encode_bytes_ref`` on the card and to the host
+    encoder's (``native.encode_batch``, the "codes" wire's) on its columns,
+    -1 past them; the wrapper's time, the kernel's alone, the plain
+    version's, and the bound: the rows read once and the codes written
+    once."""
+    import torch
+
+    from kpop_tpu_torch import native
+    from kpop_tpu_torch.core.kmers import _DNA_CODE
+    from kpop_tpu_torch.ops.encode import ENCODE_CHUNK, ByteRing, encode_bytes, encode_bytes_ref
+
+    rng = np.random.default_rng(17)
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    seqs = []
+    for _ in range(ENCODE_B):
+        raw = letters[rng.integers(0, 4, size=ENCODE_L)]
+        raw[rng.integers(0, ENCODE_L, size=ENCODE_L // 300)] = ord("N")
+        for at in rng.integers(0, ENCODE_L, size=ENCODE_L // 800):
+            raw[at: at + 8] = ord("-")
+        seqs.append(raw.tobytes().decode())
+    ring = ByteRing(pinned=dev.type == "cuda")
+    staged = ring.reserve(seqs)
+    ring.fill(staged)
+    rows, lengths = staged.split(staged.buffer.to(dev))
+    table = torch.from_numpy(_DNA_CODE).to(dev)
+    width = staged.longest
+    got = encode_bytes(rows, lengths, width, table)
+    host = native.encode_batch(seqs, False)
+    codes, w = got.cpu().numpy(), host.shape[1]
+    plain = bool(torch.equal(got, encode_bytes_ref(rows, lengths, width, table)))
+    if not (plain and np.array_equal(codes[:, :w], host) and (codes[:, w:] == -1).all()):
+        raise AssertionError(f"kernel encode_bytes: codes equal to the plain version's {plain}, "
+                             f"to the host encoder's {np.array_equal(codes[:, :w], host)}")
+    dashes = [s.count("-") for s in seqs]
+    log("kernel encode_bytes: %d rows of %d bytes, %d to %d dashes a row; torch.equal to the "
+        "plain version and to the host encoder's %d columns"
+        % (ENCODE_B, ENCODE_L, min(dashes), max(dashes), w))
+    work = torch.empty(ENCODE_B * (-(-max(staged.stride, width) // ENCODE_CHUNK) + 1),
+                       dtype=torch.int32, device=dev)
+    out = torch.empty_like(got)
+    return dict(
+        bound(int(lengths.sum()) + lengths.nbytes + got.nbytes, 0.0),
+        library_ms=None,
+        err=0.0,
+        ms=time_ms(lambda: encode_bytes(rows, lengths, width, table)),
+        alone_ms=kernel_alone_ms("kpop_encode_bytes", rows.data_ptr(), lengths.data_ptr(),
+                                 ENCODE_B, staged.stride, width, table.data_ptr(),
+                                 work.data_ptr(), out.data_ptr()),
+        plain_ms=time_ms(lambda: encode_bytes_ref(rows, lengths, width, table), reps=3),
+        shape=f"[{ENCODE_B}, {ENCODE_L}] u8 bytes with dashes, DNA lint table",
+        tol=COUNT_TOL + "; the host encoder's codes on its columns, -1 past them",
+        source="kpop_tpu_torch/csrc/encode_bytes.cu",
+        replaces="kpop_tpu/native/kpop_native.cpp:347 (on the host)",
+        launch="kpop_encode_bytes", path="slice",
+    )
 
 
 # ---------------- the 2-bit wire --------------------------------------------
@@ -1647,52 +1735,62 @@ def packed_bag_row(params, codes, table, what: str, replaces: str, path: str,
 
 def wire_costs(label: str, dev, batches) -> None:
     """What each wire costs a batch, on the host and on the way to the
-    card: host encode ms, host pack ms (``pack_reads_2bit``), the bytes of
-    each wire and the median ms of its upload from pinned memory (CUDA
-    events around the copy), logged for each batch, with their medians."""
+    card: the bytes wire's staging ms (``ByteRing.reserve`` and ``fill``),
+    host encode ms, host pack ms (``pack_reads_2bit``), the bytes of each
+    wire and the median ms of its upload from pinned memory (CUDA events
+    around the copy), logged for each batch, with their medians."""
     import torch
 
-    from kpop_tpu_torch.ops.encode import encode_reads_host, pack_reads_2bit
+    from kpop_tpu_torch.ops.encode import ByteRing, encode_reads_host, pack_reads_2bit
 
+    ring = ByteRing(pinned=True)
     per = []
     for _truth, seqs in batches:
         t0 = time.perf_counter()
-        codes = encode_reads_host(seqs)
+        staged = ring.reserve(seqs)
+        ring.fill(staged)
         t1 = time.perf_counter()
-        packed, valid = pack_reads_2bit(codes)
+        codes = encode_reads_host(seqs)
         t2 = time.perf_counter()
+        packed, valid = pack_reads_2bit(codes)
+        t3 = time.perf_counter()
+        host_bytes = staged.buffer
         host_codes = torch.from_numpy(codes).pin_memory()
         host_wire = torch.from_numpy(np.concatenate([packed.ravel(), valid.ravel()])).pin_memory()
         per.append(dict(
-            encode_ms=(t1 - t0) * 1e3, pack_ms=(t2 - t1) * 1e3,
-            codes_bytes=codes.nbytes, wire_bytes=host_wire.numel(),
+            stage_ms=(t1 - t0) * 1e3, encode_ms=(t2 - t1) * 1e3, pack_ms=(t3 - t2) * 1e3,
+            bytes_bytes=host_bytes.numel(), codes_bytes=codes.nbytes,
+            wire_bytes=host_wire.numel(),
+            bytes_upload_ms=time_ms(lambda: host_bytes.to(dev, non_blocking=True), reps=5),
             codes_upload_ms=time_ms(lambda: host_codes.to(dev, non_blocking=True), reps=5),
             wire_upload_ms=time_ms(lambda: host_wire.to(dev, non_blocking=True), reps=5)))
     for i, b in enumerate(per):
-        log("%s: batch %d: host encode %.4f ms, pack %.4f ms; upload %d B of codes %.4f ms, %d B "
-            "of the 2-bit wire %.4f ms" % (label, i, b["encode_ms"], b["pack_ms"], b["codes_bytes"],
-                                          b["codes_upload_ms"], b["wire_bytes"],
-                                          b["wire_upload_ms"]))
+        log("%s: batch %d: bytes wire staging %.4f ms, host encode %.4f ms, pack %.4f ms; upload "
+            "%d B of raw bytes %.4f ms, %d B of codes %.4f ms, %d B of the 2-bit wire %.4f ms"
+            % (label, i, b["stage_ms"], b["encode_ms"], b["pack_ms"], b["bytes_bytes"],
+               b["bytes_upload_ms"], b["codes_bytes"], b["codes_upload_ms"], b["wire_bytes"],
+               b["wire_upload_ms"]))
     med = {k: float(np.median([b[k] for b in per])) for k in per[0]}
     log("%s: medians a batch: %s" % (label, json.dumps(med)))
 
 
-def packed_serving(label: str, params, batches, dmats, kernels, paths) -> dict:
-    """The read sets served on ``paths`` through ``DeviceStep(wire=
-    "packed")``: the main path of serve_routes (every count set to 0 just
-    before, read just after; each of ``kernels`` launched; accuracy >=
-    ACCURACY_GATE), no int8 entry point of the count or the bag launched,
-    and each route's distances equal to ``dmats``, the int8 wire's."""
+def twin_serving(label: str, wire: str, params, batches, dmats, kernels, paths) -> dict:
+    """The read sets served on ``paths`` through ``DeviceStep(wire=wire)``,
+    a twin of the default bytes wire: ``"codes"`` (int8 codes encoded on
+    the host) or ``"packed"`` (the 2-bit wire).  The main path of
+    serve_routes (every count set to 0 just before, read just after; each
+    of ``kernels`` launched; accuracy >= ACCURACY_GATE), none of
+    ``NOT_ON_WIRE[wire]`` launched, and each route's distances equal to
+    ``dmats``, the bytes wire's."""
     got, launches, accuracy, busy, launch_ms = serve_routes(label, params, batches, kernels, paths,
-                                                            wire="packed")
-    int8 = [n for n in ("kpop_count_spectra", "kpop_count_spectra_wide", "kpop_embedding_bag",
-                        "kpop_embedding_bag_wide") if launches[n]]
-    if int8:
-        raise AssertionError(f"{label}: the packed wire launched int8 entry points {int8}")
+                                                            wire=wire)
+    stray = [n for n in NOT_ON_WIRE[wire] if launches[n]]
+    if stray:
+        raise AssertionError(f"{label}: the {wire} wire launched {stray}")
     for path in paths:
         if not np.array_equal(np.concatenate(got[path]), np.concatenate(dmats[path])):
-            raise AssertionError(f"{label}, {path}: distances differ from the int8 wire's")
-    log("%s: distances equal to the int8 wire's on %s" % (label, ", ".join(paths)))
+            raise AssertionError(f"{label}, {path}: distances differ from the bytes wire's")
+    log("%s: distances equal to the bytes wire's on %s" % (label, ", ".join(paths)))
     return dict(launches=launches, accuracy=accuracy, busy=busy, launch_ms=launch_ms)
 
 
@@ -1810,11 +1908,12 @@ def device_ms_by_kernel(fn) -> dict:
 
 
 def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag"),
-                 wire: str = "codes") -> tuple:
+                 wire: str | None = None) -> tuple:
     """The main path: the read sets served on the dense and the bag route
     (or ``paths``), every launch count set to 0 just before and read just
     after, each of ``kernels`` launched, the read sets sent on ``wire``
-    (DeviceStep's); finite [read sets, classes]
+    (DeviceStep's; by default its own, the bytes wire on a card); finite
+    [read sets, classes]
     distances and top-1 accuracy >= ACCURACY_GATE on each route; then each
     route's device time a batch and its largest kernels.  Returns (distance
     blocks by route, launches, accuracy, device ms a batch, and device ms a
@@ -1824,9 +1923,11 @@ def serve_routes(label: str, params, batches, kernels, paths=("dense", "bag"),
 
     for name in _build.LAUNCHES:
         _build.LAUNCHES[name] = 0
-    dmats = {path: serve(DeviceStep(params, path, wire=wire), batches) for path in paths}
+    steps = {path: DeviceStep(params, path, wire=wire) for path in paths}
+    dmats = {path: serve(step, batches) for path, step in steps.items()}
     launches = dict(_build.LAUNCHES)
-    log("%s: kernel launches on the main path: %s" % (label, json.dumps(launches)))
+    log("%s: kernel launches on the main path (the %s wire): %s"
+        % (label, steps[paths[0]].wire, json.dumps(launches)))
     missing = [name for name in kernels if launches[name] == 0]
     if missing:
         raise AssertionError("%s: kernels never launched on the main path: %s" % (label, missing))
@@ -2159,18 +2260,21 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     width = max(len(s) for _, seqs in batches for s in seqs)
     dmats, launches, accuracy, busy, launch_ms = serve_routes("slice", params, batches,
                                                               SLICE_KERNELS)
-    # the same read sets on the 2-bit wire, and what each wire costs a batch
-    packed = packed_serving("slice packed", params, batches, dmats, SLICE_PACKED_KERNELS,
-                            ("dense", "bag"))
-    log("slice: device ms a batch by route, int8 wire %s, 2-bit wire %s"
-        % (json.dumps(busy), json.dumps(packed["busy"])))
+    # the same read sets as int8 codes encoded on the host and on the 2-bit
+    # wire, and what each wire costs a batch
+    codes_twin = twin_serving("slice codes", "codes", params, batches, dmats,
+                              SLICE_CODES_KERNELS, ("dense", "bag"))
+    packed = twin_serving("slice packed", "packed", params, batches, dmats, SLICE_PACKED_KERNELS,
+                          ("dense", "bag"))
+    log("slice: device ms a batch by route, bytes wire %s, int8 wire %s, 2-bit wire %s"
+        % (json.dumps(busy), json.dumps(codes_twin["busy"]), json.dumps(packed["busy"])))
     wire_costs("slice wires", dev, batches)
     # bf16 parameters around the streamed fit's device twister, both routes
     params16 = params_around_twister(space, vocab_hex, streamed.pop("phi_dev"), streamed["inertia"],
                                      streamed["coords"], dtype=torch.bfloat16)
     bf16 = bf16_serving("slice bf16", params16, batches, dmats, SLICE_KERNELS, ("dense", "bag"))
-    bf16_packed = packed_serving("slice bf16 packed", params16, batches, bf16["dmats"],
-                                 SLICE_PACKED_KERNELS, ("dense", "bag"))
+    bf16_packed = twin_serving("slice bf16 packed", "packed", params16, batches, bf16["dmats"],
+                               SLICE_PACKED_KERNELS, ("dense", "bag"))
     del params16
     log_accumulate("slice", launch_ms["bag"], bf16["launch_ms"]["bag"])
 
@@ -2183,19 +2287,20 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     if max(host_err.values()) > HOST_CHAIN_ATOL:
         raise AssertionError(f"distances off the host float64 chain: {host_err}")
 
-    # serving rate: host encode, upload, device step and download, one
+    # serving rate: host staging, upload, device step and download, one
     # batch in flight, route picked as kpop-classify's default 'auto' does
     auto = pick_path(batch, width - K + 1, params.n_vocab, d)
     rates = {}
-    for wire in ("codes", "packed", "packed", "codes"):
+    order = ("bytes", "codes", "packed", "packed", "codes", "bytes")
+    for wire in order:
         t0 = time.perf_counter()
         serve(DeviceStep(params, "auto", wire=wire), batches)
         rates.setdefault(wire, []).append(n_seqs / (time.perf_counter() - t0))
-    log("slice: serving seqs/s over %d read sets per pass (route %s; host encode%s + upload + "
-        "device step + download), in the order codes, packed, packed, codes: int8 wire %s, "
-        "2-bit wire %s, on %s"
-        % (n_seqs, auto, " (+ pack)", [round(r, 1) for r in rates["codes"]],
-           [round(r, 1) for r in rates["packed"]], card))
+    log("slice: serving seqs/s over %d read sets per pass (route %s; host staging + upload + "
+        "device step + download), in the order %s: bytes wire %s, int8 wire %s, 2-bit wire %s, "
+        "on %s"
+        % (n_seqs, auto, ", ".join(order), [round(r, 1) for r in rates["bytes"]],
+           [round(r, 1) for r in rates["codes"]], [round(r, 1) for r in rates["packed"]], card))
     return dict(launches=launches, train_launches=train_launches, accuracy=accuracy,
                 host_err=host_err, seqs_per_s=rates, vocab=params.n_vocab, d=d,
                 train_s=train_s, train_phases=phases, ca_err=ca_err, table=table,
@@ -2581,10 +2686,12 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
            time.perf_counter() - t0))
     dmats, launches, accuracy, busy, launch_ms = serve_routes("large k", params, batches,
                                                               LARGE_K_KERNELS)
-    packed = packed_serving("large k packed", params, batches, dmats, LARGE_K_PACKED_KERNELS,
-                            ("dense", "bag"))
-    log("large k: device ms a batch by route, int8 wire %s, 2-bit wire %s"
-        % (json.dumps(busy), json.dumps(packed["busy"])))
+    codes_twin = twin_serving("large k codes", "codes", params, batches, dmats,
+                              LARGE_K_CODES_KERNELS, ("dense", "bag"))
+    packed = twin_serving("large k packed", "packed", params, batches, dmats,
+                          LARGE_K_PACKED_KERNELS, ("dense", "bag"))
+    log("large k: device ms a batch by route, bytes wire %s, int8 wire %s, 2-bit wire %s"
+        % (json.dumps(busy), json.dumps(codes_twin["busy"]), json.dumps(packed["busy"])))
     log("large k: on %s" % card)
     # phase 8's count: the first batch in the row ranges of 4 ranks
     codes = encode_reads_host(batches[0][1])
@@ -2601,9 +2708,10 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
     del params, codes
     torch.cuda.empty_cache()
     bf16 = bf16_serving("large k bf16", params16, batches, dmats,
-                        ("kpop_embedding_bag_wide", "kpop_pairwise_dist"), ("bag",))
-    bf16_packed = packed_serving("large k bf16 packed", params16, batches, bf16["dmats"],
-                                 ("kpop_embedding_bag_wide_packed", "kpop_pairwise_dist"), ("bag",))
+                        ("kpop_embedding_bag_wide", "kpop_pairwise_dist", "kpop_encode_bytes"),
+                        ("bag",))
+    bf16_packed = twin_serving("large k bf16 packed", "packed", params16, batches, bf16["dmats"],
+                               ("kpop_embedding_bag_wide_packed", "kpop_pairwise_dist"), ("bag",))
     del params16
     log_accumulate("large k", launch_ms["bag"], bf16["launch_ms"]["bag"])
 
@@ -2627,19 +2735,24 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
 
 
 def stage_ms(step, batches) -> dict:
-    """A batch of k-mer-sharded serving split into its steps on this rank:
-    host encode and upload, count (``csrc/count_spectra.cu`` over the rank's
-    rows), product, all-reduce and distances (``csrc/pairwise.cu``); the
-    host clock around each, the card synchronized at each mark; the median
-    over ``batches`` in ms.  Every rank of the layout runs it, in step."""
+    """A batch of k-mer-sharded serving split into its steps on this rank,
+    on the bytes wire as ``step`` serves it: the rank's rows staged as raw
+    bytes and uploaded, encoded on the card (``csrc/encode_bytes.cu``),
+    count (``csrc/count_spectra.cu`` over the rank's rows), product,
+    all-reduce and distances (``csrc/pairwise.cu``); the host clock around
+    each, the card synchronized at each mark; the median over ``batches``
+    in ms.  Every rank of the layout runs it, in step."""
     import torch
 
-    from kpop_tpu_torch.ops.encode import encode_reads_host
+    from kpop_tpu_torch.core.kmers import _DNA_CODE, _PROT_CODE
+    from kpop_tpu_torch.ops.encode import ByteRing, encode_bytes
     from kpop_tpu_torch.ops.pipeline import distances_to_classes
     from kpop_tpu_torch.parallel.mesh import all_reduce
     from kpop_tpu_torch.parallel.serving import count_shard, project_shard
 
     p, mesh = step.params, step.mesh
+    ring = ByteRing(pinned=step.device.type != "cpu")
+    table = torch.from_numpy(_PROT_CODE if p.base != 4 else _DNA_CODE).to(step.device)
     times: dict = {}
 
     def mark(name, t0):
@@ -2651,10 +2764,14 @@ def stage_ms(step, batches) -> dict:
     for _truth, seqs in batches:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        codes = encode_reads_host(seqs)
-        b0, b1 = mesh.rows(codes.shape[0], "data")
-        codes = torch.as_tensor(np.ascontiguousarray(codes[b0:b1]), device=step.device)
-        t = mark("encode_upload", t)
+        n = len(seqs)
+        b0, b1 = mesh.rows(n + (-n) % mesh.dp, "data")
+        staged = ring.reserve(seqs, b0, b1)
+        ring.fill(staged)
+        sent = staged.buffer.to(step.device, non_blocking=True)
+        t = mark("stage_upload", t)
+        codes = encode_bytes(*staged.split(sent), max(staged.longest, p.k), table)
+        t = mark("encode", t)
         spectra, known = count_shard(p, codes)
         t = mark("count", t)
         part = project_shard(p, spectra, known)
@@ -2779,7 +2896,8 @@ def sharded_rank(rank: int, world: int, port: int, workdir: str, backend: str) -
         if res["accuracy"] < ACCURACY_GATE:
             raise AssertionError(f"rank {rank}, {res['option']} {dtype_name}: accuracy "
                                  f"{res['accuracy']} < {ACCURACY_GATE}")
-        missing = [n for n in ("kpop_count_spectra_wide", "kpop_pairwise_dist") if not launches[n]]
+        missing = [n for n in ("kpop_count_spectra_wide", "kpop_pairwise_dist", "kpop_encode_bytes")
+                   if not launches[n]]
         if missing or launches["kpop_embedding_bag_wide"]:
             raise AssertionError(f"rank {rank}: the sharded main path's launches {launches}")
         if dtype_name == "f32":
@@ -2808,7 +2926,7 @@ def sharded_rank(rank: int, world: int, port: int, workdir: str, backend: str) -
             res["stages_ms"] = stage_ms(step, batches)
         if kp_opt and dtype_name == "f32":
             # the same layout on the 2-bit wire: the count's packed entry
-            # point over the rank's rows, the distances the int8 wire's
+            # point over the rank's rows, the distances the bytes wire's
             pstep = DeviceStep(params, mesh=mesh, dmat=sharded_dmat_fn(mesh, v), wire="packed")
             serve(pstep, batches[:1])  # warm-up
             for name in _build.LAUNCHES:
@@ -2820,7 +2938,7 @@ def sharded_rank(rank: int, world: int, port: int, workdir: str, backend: str) -
                                  equal=bool(np.array_equal(np.concatenate(pblocks), dmat)))
             pl_ = res["packed"]["launches"]
             if not (res["packed"]["equal"] and pl_["kpop_count_spectra_wide_packed"]
-                    and not pl_["kpop_count_spectra_wide"]):
+                    and not pl_["kpop_count_spectra_wide"] and not pl_["kpop_encode_bytes"]):
                 raise AssertionError(f"rank {rank}: the packed wire's distances equal the int8 "
                                      f"wire's: {res['packed']['equal']}; launches {pl_}")
             del pstep
@@ -2947,7 +3065,7 @@ def phase_sharded(lk: dict, batches, card: str) -> dict:
             for i, res in enumerate(r0["serving"]):
                 peaks = [r["serving"][i]["serve_peak"] for r in ranks]
                 log("sharded %s x%d, %s %s: layout dp=%d kp=%d (all-reduce over %s%s); accuracy "
-                    "%.4f; %s; %.1f read sets/s on rank 0 (host encode, upload, the step and "
+                    "%.4f; %s; %.1f read sets/s on rank 0 (host staging, upload, the step and "
                     "the gather of distances through the host); hand-off %.2f s, peak %d B; "
                     "shard %d B of a %d B twister; serving peak by rank %s B (%.3f of the "
                     "twister's bytes; bound: the shard, the vocabulary tables and a batch, %d "
@@ -2965,7 +3083,7 @@ def phase_sharded(lk: dict, batches, card: str) -> dict:
                        json.dumps(summed_launches(r["serving"][i]["launches"] for r in ranks)),
                        card))
                 if "packed" in res:
-                    log("sharded %s x%d, %s %s on the 2-bit wire: distances equal to the int8 "
+                    log("sharded %s x%d, %s %s on the 2-bit wire: distances equal to the bytes "
                         "wire's on every rank %s; %.1f read sets/s on rank 0; main path "
                         "launches summed over the ranks %s"
                         % (backend, world, res["option"], res["dtype"],

@@ -74,6 +74,9 @@ _SIGNATURES = {
     "kpop_ca_gram": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P),
     # partials, slices, ns, beta, out, stream
     "kpop_ca_gram_finish": (_P, _I, _I, _P, _P, _P),
+    # raw bytes, their int32 lengths, B, row stride, width, lint table,
+    # workspace, out (int8 codes), stream
+    "kpop_encode_bytes": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 #: launches of each kernel since the last reset (set the values to 0)

@@ -36,7 +36,7 @@ import sys
 import numpy as np
 import torch
 
-from ..core.kmers import KmerSpace
+from ..core.kmers import _DNA_CODE, _PROT_CODE, KmerSpace
 from ..core.matrix import KPopMatrix, MatrixType
 from ..core.space import Distance, Metric, summarize_distance_row
 from ..core.twister import Twister
@@ -54,7 +54,14 @@ from .. import __version__, trace
 from ..config import device
 from ..parallel import distributed
 from ..parallel.mesh import Layout, all_gather_rows, make_mesh
-from ..ops.encode import PackedReads, encode_reads_host, pack_reads_2bit, packed_strides
+from ..ops.encode import (
+    ByteRing,
+    PackedReads,
+    encode_bytes,
+    encode_reads_host,
+    pack_reads_2bit,
+    packed_strides,
+)
 from ..ops.pipeline import (
     ClassifierParams,
     build_classifier_params,
@@ -143,37 +150,50 @@ def dmat_step(params: ClassifierParams, base_codes, path: str):
 
 
 class DeviceStep:
-    """Encode a batch on the host, upload this rank's rows of it, compute
+    """Stage a batch on the host, upload this rank's rows of it, compute
     their distances and start the download, without waiting.
 
     ``mesh`` is the rank layout (:class:`~..parallel.mesh.Layout`; one rank
-    by default): every rank encodes the whole batch, pads it with all
-    ``-1`` rows (empty spectra) to a multiple of the data axis and serves
-    its data group's rows; :meth:`materialize` gathers the groups' rows
+    by default): the batch is padded with empty rows (all ``-1`` codes,
+    empty spectra) to a multiple of the data axis and each rank serves its
+    data group's rows; :meth:`materialize` gathers the groups' rows
     through the host, in order.  ``dmat`` maps ``(params, codes)`` to the
     ``[B, C]`` distances; by default :func:`dmat_step` over ``path``
     (``"auto"`` is pinned by :func:`pick_path` on the first batch).
 
-    On a card the codes are uploaded from pinned memory without blocking,
+    On a card the batch is uploaded from pinned memory without blocking,
     and the result is copied without blocking into pinned host memory with
     an event recorded behind it; :meth:`materialize` waits on that event
     alone.  ``tensor.cpu()`` would also wait for any batch dispatched after
     this one, and the serve loop keeps one batch in flight so that the host
     formats one batch while the card computes the next.
 
-    ``wire`` is what crosses to the card: ``"codes"``, one int8 code a base
-    (the default, as the JAX tool serves), or ``"packed"``, DNA on the
-    2-bit wire (:func:`~..ops.encode.pack_reads_2bit`, 3/8 of a byte a
-    base), packed on the host and staged as one pinned buffer, the packed
-    bytes then the validity bytes, uploaded by one copy; the kernels read
-    it as it is (:class:`~..ops.encode.PackedReads`), with the same
-    distances.
+    ``wire`` is what crosses to the card:
+
+    - ``"bytes"`` (the default where the parameters lie on a card): the
+      rank's sequences as raw UTF-8 bytes, one a base, staged in a ring of
+      two reused pinned buffers (:class:`~..ops.encode.ByteRing`), then
+      linted and encoded on the card (:func:`~..ops.encode.encode_bytes`,
+      ``csrc/encode_bytes.cu``);
+    - ``"codes"`` (the default on the CPU, as the JAX tool serves): one
+      int8 code a base, encoded on the host
+      (:func:`~..ops.encode.encode_reads_host`);
+    - ``"packed"``: DNA on the 2-bit wire
+      (:func:`~..ops.encode.pack_reads_2bit`, 3/8 of a byte a base),
+      encoded and packed on the host and staged as one pinned buffer, the
+      packed bytes then the validity bytes, uploaded by one copy; the
+      kernels read it as it is (:class:`~..ops.encode.PackedReads`).
+
+    Every wire gives the same distances.
     """
 
     def __init__(self, params: ClassifierParams, path: str = "auto", mesh: Layout | None = None,
-                 dmat=None, wire: str = "codes"):
-        if wire not in ("codes", "packed"):
-            raise ValueError(f"wire must be 'codes' or 'packed', not {wire!r}")
+                 dmat=None, wire: str | None = None):
+        self.device = params.twister.device
+        if wire is None:  # on the CPU the plain encode is slower than the native host encoder
+            wire = "bytes" if self.device.type == "cuda" else "codes"
+        if wire not in ("bytes", "codes", "packed"):
+            raise ValueError(f"wire must be 'bytes', 'codes' or 'packed', not {wire!r}")
         if wire == "packed" and params.base != 4:
             raise ValueError(f"the 2-bit wire holds DNA, not base {params.base}")
         self.params = params
@@ -181,43 +201,37 @@ class DeviceStep:
         self.mesh = Layout(dp=1, kp=1) if mesh is None else mesh
         self.dmat = dmat
         self.wire = wire
-        self.device = params.twister.device
+        if wire == "bytes":
+            self._ring = ByteRing(pinned=self.device.type != "cpu")
+            self._lint = torch.from_numpy(_PROT_CODE if params.base != 4 else _DNA_CODE).to(
+                self.device)
 
     def dispatch(self, seqs: list[str]):
-        p, mesh, on_card = self.params, self.mesh, self.device.type != "cpu"
+        mesh, on_card, wire = self.mesh, self.device.type != "cpu", self.wire
         with trace.span("serve.dispatch"):
-            with trace.span("serve.encode"):
-                codes = encode_reads_host(seqs, protein=p.base != 4)
-            n = codes.shape[0]
-            with trace.span("serve.stage"):
-                pad_rows, pad_cols = (-n) % mesh.dp, max(0, p.k - codes.shape[1])
-                if pad_rows or pad_cols:  # -1 pads: a break, counts nothing
-                    codes = np.pad(codes, ((0, pad_rows), (0, pad_cols)), constant_values=-1)
-                b0, b1 = mesh.rows(codes.shape[0], "data")
-                codes = np.ascontiguousarray(codes[b0:b1])
-                if self.dmat is None and self.path == "auto":  # pinned on the first (full) batch
-                    self.path = pick_path(
-                        codes.shape[0], codes.shape[1] - p.k + 1, p.n_vocab, p.twister.shape[1]
-                    )
-                if self.wire == "packed":
-                    staged = self._stage_packed(codes)
-                else:
-                    staged = torch.from_numpy(codes)
-                    if on_card:
-                        staged = staged.pin_memory()
+            if wire == "bytes":
+                staged, width = self._stage_bytes(seqs)
+                sent = staged.buffer
+            else:
+                sent, shape = self._stage_codes(seqs)
             if on_card:
                 with trace.span("serve.upload"):
-                    reads = staged.to(self.device, non_blocking=True)
+                    reads = sent.to(self.device, non_blocking=True)
+                    if wire == "bytes":
+                        self._ring.uploaded()
             else:
-                reads = staged
-            if self.wire == "packed":
-                reads = self._packed_reads(reads, *codes.shape)
+                reads = sent
+            if wire == "packed":
+                reads = self._packed_reads(reads, *shape)
             with trace.span("serve.launch"):
+                if wire == "bytes":
+                    reads = encode_bytes(*staged.split(reads), width, self._lint)
                 dmat = self._dmat(reads)
+            n = len(seqs)
             trace.count("serve.batches")
             trace.count("serve.queries", n)
             trace.count("serve.bases", sum(map(len, seqs)))
-            trace.count("serve.upload_bytes", staged.nbytes)
+            trace.count("serve.upload_bytes", sent.nbytes)
             if self.dmat is None:
                 trace.count("serve.route." + self.path)
             if not on_card:
@@ -228,6 +242,47 @@ class DeviceStep:
                 done = torch.cuda.Event()
                 done.record()
             return host, done, n, mesh.data_host
+
+    def _pick_path(self, rows: int, length: int) -> None:
+        """Pin ``"auto"`` by :func:`pick_path` on the first (full) batch."""
+        p = self.params
+        if self.dmat is None and self.path == "auto":
+            self.path = pick_path(rows, length - p.k + 1, p.n_vocab, p.twister.shape[1])
+
+    def _stage_bytes(self, seqs):
+        """This rank's rows of the batch as raw bytes on the ring's next
+        buffer, and the codes' width: the batch's longest sequence in
+        bytes, at least k."""
+        with trace.span("serve.stage"):
+            n = len(seqs)
+            b0, b1 = self.mesh.rows(n + (-n) % self.mesh.dp, "data")
+            staged = self._ring.reserve(seqs, b0, b1)
+            width = max(staged.longest, self.params.k)
+            self._pick_path(staged.rows, width)
+        with trace.span("serve.encode"):
+            self._ring.fill(staged)
+        return staged, width
+
+    def _stage_codes(self, seqs):
+        """This rank's rows of the batch encoded on the host (packed on the
+        2-bit wire), pinned where the card takes them, and their shape."""
+        p, mesh = self.params, self.mesh
+        with trace.span("serve.encode"):
+            codes = encode_reads_host(seqs, protein=p.base != 4)
+        with trace.span("serve.stage"):
+            pad_rows, pad_cols = (-codes.shape[0]) % mesh.dp, max(0, p.k - codes.shape[1])
+            if pad_rows or pad_cols:  # -1 pads: a break, counts nothing
+                codes = np.pad(codes, ((0, pad_rows), (0, pad_cols)), constant_values=-1)
+            b0, b1 = mesh.rows(codes.shape[0], "data")
+            codes = np.ascontiguousarray(codes[b0:b1])
+            self._pick_path(*codes.shape)
+            if self.wire == "packed":
+                staged = self._stage_packed(codes)
+            else:
+                staged = torch.from_numpy(codes)
+                if self.device.type != "cpu":
+                    staged = staged.pin_memory()
+        return staged, codes.shape
 
     def _stage_packed(self, codes: np.ndarray) -> torch.Tensor:
         """``[B, L]`` int8 codes packed on the host into one buffer (pinned

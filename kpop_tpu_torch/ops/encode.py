@@ -18,14 +18,22 @@ DNA read sets may also travel on the 2-bit wire of
 ``native.pack_2bit_batch`` (:func:`pack_reads_2bit`, :class:`PackedReads`):
 3/8 of a byte a base where the codes take one.  The kernels read it as it
 is; :func:`unpack_2bit_batch` is its plain version.
+
+On a card the serving step uploads the sequences' raw bytes instead
+(:class:`ByteRing`, one byte a base as the codes) and lints and encodes
+them there (:func:`encode_bytes`, ``csrc/encode_bytes.cu``), with the codes
+of :func:`encode_reads_host`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .. import _build
 
 # Largest dense-LUT size for the code -> vocabulary map (int32 entries):
 # 2^24 + 1 covers DNA k=12 exactly.
@@ -192,6 +200,156 @@ def encode_reads_host(
     for i, e in enumerate(encoded):
         out[i, : min(len(e), L)] = e[:L]
     return out
+
+
+#: the bytes of a row that one block of ``csrc/encode_bytes.cu`` takes
+ENCODE_CHUNK = 16384
+
+
+def encode_bytes(rows: torch.Tensor, lengths: torch.Tensor, width: int,
+                 table: torch.Tensor) -> torch.Tensor:
+    """Raw sequence bytes ``rows [B, stride]`` u8, of which row ``b`` holds
+    ``lengths[b]`` (int32), -> ``[B, width]`` int8 base codes: each byte's
+    code in ``table`` (int8 ``[256]``, ``core/kmers.py``'s ``_DNA_CODE`` or
+    ``_PROT_CODE``: -1 breaks the windows, -2 is the dash), dashes removed
+    with their flanks joined, -1 past each row's encoded length (truncated
+    at ``width``).  Bytes past a row's length are not read.  On the common
+    columns these are :func:`encode_reads_host`'s codes; a wider ``width``
+    adds -1 columns, which break every window and count nothing.
+
+    On a card, ``csrc/encode_bytes.cu``, which refuses a ``stride`` that is
+    not a multiple of 16 or rows off a 16-byte boundary; on the CPU,
+    :func:`encode_bytes_ref`."""
+    if rows.dim() != 2 or rows.dtype != torch.uint8:
+        raise TypeError(f"encode_bytes: rows must be [B, stride] uint8, not {rows.dtype} "
+                        f"{tuple(rows.shape)}")
+    B, stride = rows.shape
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise TypeError(f"encode_bytes: lengths must be [{B}] int32")
+    if table.shape != (256,) or table.dtype != torch.int8:
+        raise TypeError("encode_bytes: the table must be [256] int8")
+    if width < 1:
+        raise ValueError(f"encode_bytes: width {width} < 1")
+    if rows.device.type == "cpu":
+        return encode_bytes_ref(rows, lengths, width, table)
+    _build.check_cuda("encode_bytes", rows, lengths, table,
+                      dtypes=(torch.uint8, torch.int32, torch.int8))
+    chunks = -(-max(stride, width) // ENCODE_CHUNK)
+    out = torch.empty((B, width), dtype=torch.int8, device=rows.device)
+    work = torch.empty(B * (chunks + 1), dtype=torch.int32, device=rows.device)
+    _build.launch("kpop_encode_bytes", rows.data_ptr(), lengths.data_ptr(), B, stride, width,
+                  table.data_ptr(), work.data_ptr(), out.data_ptr())
+    return out
+
+
+def encode_bytes_ref(rows: torch.Tensor, lengths: torch.Tensor, width: int,
+                     table: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`encode_bytes`: the table
+    gathered, then the kept bytes compacted by a ``cumsum``."""
+    B, stride = rows.shape
+    codes = table[rows.long()]
+    length = lengths.long().clamp(0, stride)
+    keep = (torch.arange(stride, device=rows.device) < length[:, None]) & (codes != -2)
+    dest = keep.long().cumsum(1) - 1
+    keep &= dest < width
+    out = torch.full((B, width), -1, dtype=torch.int8, device=rows.device)
+    r, c = keep.nonzero(as_tuple=True)
+    out[r, dest[r, c]] = codes[r, c]
+    return out
+
+
+_AS_UTF8 = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object,
+                             ctypes.POINTER(ctypes.c_ssize_t))(
+    ("PyUnicode_AsUTF8AndSize", ctypes.pythonapi))
+
+
+def _utf8(seq) -> tuple:
+    """``(source, n)``: the address of a ``str``'s own UTF-8 buffer (for an
+    ASCII string its data; for another, the bytes ``seq.encode()`` gives,
+    which the string keeps), or a bytes object itself, and its length."""
+    if isinstance(seq, str):
+        n = ctypes.c_ssize_t()
+        return _AS_UTF8(seq, ctypes.byref(n)), n.value
+    seq = bytes(seq)
+    return seq, len(seq)
+
+
+class StagedBytes(NamedTuple):
+    """A batch staged by :class:`ByteRing`: ``buffer`` holds ``rows`` rows
+    of ``stride`` bytes, then their ``[rows]`` int32 byte lengths;
+    ``longest`` is the batch's longest sequence in bytes; ``sources`` the
+    rows to copy in (:func:`_utf8`)."""
+
+    buffer: torch.Tensor
+    rows: int
+    stride: int
+    longest: int
+    sources: list
+
+    def split(self, buffer: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(rows [rows, stride] u8, lengths [rows] int32)`` on ``buffer``
+        (by default the staged one; or its copy on a card)."""
+        buf = self.buffer if buffer is None else buffer
+        at = self.rows * self.stride
+        return buf[:at].view(self.rows, self.stride), buf[at:].view(torch.int32)
+
+
+class ByteRing:
+    """Two reused host buffers (pinned where a card takes them), used in
+    turn, that stage a batch's sequences as raw bytes for one upload.
+
+    :meth:`reserve` takes the next buffer, waits for its last upload
+    (recorded by :meth:`uploaded`; done already when the batch that used it
+    was drained), grows it where the batch is larger and writes the rows'
+    lengths; :meth:`fill` copies each row straight from the sequence's own
+    buffer (:func:`_utf8`), with no encode, join or pinned copy.  A row
+    starts at a multiple of its stride, the batch's longest sequence
+    rounded up to 16 bytes; nothing past a row's length is written."""
+
+    SLOTS = 2
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self._buffers = [torch.empty(0, dtype=torch.uint8) for _ in range(self.SLOTS)]
+        self._uploads: list[torch.cuda.Event | None] = [None] * self.SLOTS
+        self._turn = 0
+
+    def reserve(self, seqs, r0: int = 0, r1: int | None = None) -> StagedBytes:
+        """The rows ``[r0, r1)`` of the batch ``seqs`` (rows past its end
+        have length 0) on the next buffer, their lengths written."""
+        r1 = len(seqs) if r1 is None else r1
+        sources = [_utf8(s) for s in seqs]
+        longest = max((n for _, n in sources), default=0)
+        stride = -(-max(longest, 1) // 16) * 16
+        rows = r1 - r0
+        need = rows * (stride + 4)
+        slot = self._turn
+        self._turn = (slot + 1) % self.SLOTS
+        if self._uploads[slot] is not None:
+            self._uploads[slot].synchronize()
+            self._uploads[slot] = None
+        if self._buffers[slot].numel() < need:
+            self._buffers[slot] = torch.empty(need, dtype=torch.uint8, pin_memory=self.pinned)
+        mine = sources[r0:r1]
+        staged = StagedBytes(self._buffers[slot][:need], rows, stride, longest, mine)
+        lengths = staged.split()[1].numpy()
+        lengths[: len(mine)] = [n for _, n in mine]
+        lengths[len(mine):] = 0
+        return staged
+
+    @staticmethod
+    def fill(staged: StagedBytes) -> None:
+        """Copy each row's bytes into the staged buffer."""
+        base, stride = staged.buffer.data_ptr(), staged.stride
+        for i, (src, n) in enumerate(staged.sources):
+            ctypes.memmove(base + i * stride, src, n)
+
+    def uploaded(self) -> None:
+        """Record, on the current stream, the end of the upload of the
+        buffer :meth:`reserve` last took."""
+        done = torch.cuda.Event()
+        done.record()
+        self._uploads[(self._turn - 1) % self.SLOTS] = done
 
 
 def packed_strides(length: int) -> tuple[int, int]:

@@ -10,3 +10,8 @@ if "xla_force_host_platform_device_count" not in flags:
         flags + " --xla_force_host_platform_device_count=8"
     ).strip()
 os.environ.setdefault("KPOP_PLATFORM", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skipped without one); run on the card with -m card")

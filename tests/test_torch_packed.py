@@ -295,7 +295,7 @@ def test_device_step_packed_equal_to_codes(trained, path, lookup):  # noqa: F811
 def test_device_step_wire_checks(trained):  # noqa: F811
     _, tparams, _ = lut_case(trained, torch.float32)
     with pytest.raises(ValueError, match="wire"):
-        DeviceStep(tparams, "dense", wire="bytes")
+        DeviceStep(tparams, "dense", wire="utf8")
     protein = tp.ClassifierParams(
         torch.zeros(20**2 + 1, dtype=torch.int32), torch.zeros((5, 3)), torch.ones(3),
         torch.zeros((2, 3)), torch.ones(2), k=2, canonical=False, base=20)

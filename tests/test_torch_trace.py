@@ -99,7 +99,7 @@ def test_serving_step_ranges_nest_in_order(trained, counts):
         assert counts[name + ".calls"] == 1 and counts[name + ".ns"] > 0
 
 
-@pytest.mark.parametrize("wire", ["codes", "packed"])
+@pytest.mark.parametrize("wire", ["codes", "packed", "bytes"])
 @pytest.mark.parametrize("path", ["auto", "bag"])
 def test_counters_count_the_batch(trained, counts, path, wire):
     _, params, seqs = trained
@@ -108,7 +108,9 @@ def test_counters_count_the_batch(trained, counts, path, wire):
         step.materialize(step.dispatch(seqs))
     codes = encode_reads_host(seqs)
     B, L = codes.shape
-    sent = codes.nbytes if wire == "codes" else B * sum(packed_strides(L))
+    sent = {"codes": codes.nbytes, "packed": B * sum(packed_strides(L)),
+            # rows at the longest rounded up to 16 bytes, then int32 lengths
+            "bytes": B * (-(-max(map(len, seqs)) // 16) * 16 + 4)}[wire]
     assert step.path in ("dense", "bag")
     assert {k: v for k, v in counts.items() if not k.endswith((".ns", ".calls"))} == {
         "serve.batches": 1, "serve.queries": len(seqs), "serve.bases": sum(map(len, seqs)),
