@@ -140,12 +140,14 @@ def pick_path(B: int, W: int, V: int, d: int) -> str:
 def dmat_step(params: ClassifierParams, base_codes, path: str):
     """``[B, L]`` base codes (or :class:`~..ops.encode.PackedReads`) ->
     ``[B, C]`` distances to the classes, through the dense route (count,
-    then the twister product) or the bag."""
+    then the twister product over each read set's integer count of known
+    windows) or the bag."""
     check_whole_twister("dmat_step", params)
     if path == "bag":
         twisted = project_reads(params, base_codes)
     else:
-        twisted = project(params, count_spectra(params, base_codes))
+        spectra, known = count_spectra(params, base_codes, known=True)
+        twisted = project(params, spectra, known=known)
     return distances_to_classes(params, twisted)
 
 
@@ -211,7 +213,7 @@ class DeviceStep:
         with trace.span("serve.dispatch"):
             if wire == "bytes":
                 staged, width = self._stage_bytes(seqs)
-                sent = staged.buffer
+                sent, shape = staged.buffer, (staged.rows, width)
             else:
                 sent, shape = self._stage_codes(seqs)
             if on_card:
@@ -234,6 +236,7 @@ class DeviceStep:
             trace.count("serve.upload_bytes", sent.nbytes)
             if self.dmat is None:
                 trace.count("serve.route." + self.path)
+            self._count_windows(seqs, *shape)
             if not on_card:
                 return dmat, None, n, mesh.data_host
             with trace.span("serve.download"):
@@ -242,6 +245,27 @@ class DeviceStep:
                 done = torch.cuda.Event()
                 done.record()
             return host, done, n, mesh.data_host
+
+    def _count_windows(self, seqs, rows: int, length: int) -> None:
+        """The counters of the count's work, from the host's lengths: this
+        rank's windows (``serve.windows``, each sequence's length less k -
+        1), its read sets of 2^24 windows or more (``serve.long_rows``),
+        and the least bytes of the count (``serve.count_bytes``): the
+        ``rows`` rows of codes it reads at their stride (``length`` bases,
+        or the 2-bit wire's bytes a row) and the ``[rows, V]`` f32 spectra
+        it writes (a shard's rows on a k-mer-sharded rank); 0 on the bag
+        route."""
+        if not trace.recording():
+            return
+        k = self.params.k
+        b0, b1 = self.mesh.rows(len(seqs) + (-len(seqs)) % self.mesh.dp, "data")
+        windows = [max(0, len(s) - k + 1) for s in seqs[b0:b1]]
+        trace.count("serve.windows", sum(windows))
+        trace.count("serve.long_rows", sum(w >= 1 << 24 for w in windows))
+        stride = sum(packed_strides(length)) if self.wire == "packed" else length
+        counted = self.dmat is not None or self.path != "bag"
+        trace.count("serve.count_bytes",
+                    rows * (stride + 4 * self.params.twister.shape[0]) if counted else 0)
 
     def _pick_path(self, rows: int, length: int) -> None:
         """Pin ``"auto"`` by :func:`pick_path` on the first (full) batch."""

@@ -49,13 +49,19 @@
 // slices count the rows cells of that range into a [B, rows] spectrum.
 // Where the caller asks (known), the lookup also counts every known window
 // of each read set into the tail of the scratch: the global normaliser of
-// a shard's projection.  The default range, 0 and V, without known, takes
-// the lookup with neither the range test nor that count (RANGED false).
+// a shard's projection.  The default range, 0 and V, takes the lookup with
+// neither the range test nor that count (RANGED false): there every known
+// window is kept, so each read set's count of kept windows, n[b], is its
+// normaliser, with or without known.
 //
 // Exactness: the counts are integers, summed in shared memory in any
-// order, and converted once; a float32 holds every integer below 2^24
-// exactly (the wrapper raises for W >= 2^24), so the result equals the
-// plain version bit for bit and is the same from run to run.
+// order, and each cell is converted to float32 once: exact below 2^24, one
+// float32 rounding above (u32 counters, read sets of more than 65,535
+// windows).  So the result equals the plain version bit for bit and is the
+// same from run to run.  The normaliser stays an int32 count, exact for
+// any read set the wrapper takes (ops/encode.py::READ_MAX_BASES).  Every
+// batch offset (read set times its row of codes, indices or spectrum) is
+// 64-bit; a read set's positions and windows are int32.
 //
 // Large k (kpop_count_spectra_wide): the rolling codes are uint64 (DNA 2
 // bits a base, masked to 2k bits; the reverse complement shifted in at bit
@@ -282,8 +288,8 @@ count_slices(const uint32_t* __restrict__ idx, const int* __restrict__ n_idx, in
 // Both launches for any lookup, into the [B, rows] spectra of the
 // vocabulary rows [row0, row0 + rows); idx: int32 scratch of B * Wp + 2 B
 // entries (the kept indices, then each read set's count of them, then,
-// with known, its count of all known windows), Wp = L - k + 1 rounded up
-// to RUN
+// with known on a range other than the default, its count of all known
+// windows), Wp = L - k + 1 rounded up to RUN
 template <class Wire, class Find>
 int count_spectra(const typename Wire::Byte* bases, const uint8_t* valid, int B, int L, int k,
                   int canonical, int base, const Find& find, int V, int row0, int rows, int known,
@@ -298,7 +304,7 @@ int count_spectra(const typename Wire::Byte* bases, const uint8_t* valid, int B,
     if (err != cudaSuccess) return (int)err;
     if (Wp > 0) {
         const dim3 grid((Wp / RUN + LOOKUP_THREADS - 1) / LOOKUP_THREADS, B);
-        if (row0 != 0 || rows != V || known)
+        if (row0 != 0 || rows != V)
             count_lookup<Wire, Find, true><<<grid, LOOKUP_THREADS, 0, st>>>(
                 bases, valid, L, k, canonical, base, find, V, row0, rows, Wp, idx, n_idx,
                 known ? n_idx + B : nullptr);
@@ -330,8 +336,8 @@ int count_spectra(const typename Wire::Byte* bases, const uint8_t* valid, int B,
 
 // k up to lut_k_max: codes [B, L] int8; lut is the dense [base^k + 1]
 // table; the spectra of the vocabulary rows [row0, row0 + rows) (0 and V:
-// all of it), and with known (nonzero) each read set's count of all its
-// known windows
+// all of it), and with known (nonzero) on another range each read set's
+// count of all its known windows (on the default range, the kept count)
 extern "C" int kpop_count_spectra(const int8_t* codes, int B, int L, int k, int canonical,
                                   int base, const int32_t* lut, int V, int row0, int rows,
                                   int known, uint32_t* idx, float* out, void* stream) {

@@ -79,11 +79,17 @@
 //    at once, and adds them in order.
 // 4. slice sum.  Each block writes its [B, COLS] partial to an f32
 //    workspace [S, B, d]; bag_slice_sum adds the slices in order and
-//    divides by n_known, the read set's count of known windows.
+//    divides by n_known, the read set's int32 count of known windows, once
+//    in float64, so the quotient is the correctly rounded float32 one at
+//    any count (below 2^24 the same bits as a float32 division).
 //
 // count x row is rounded once where a plain sum adds the row count times,
 // so the result differs from the plain version in the last bits; the sum
-// is the same from run to run.
+// is the same from run to run.  A count is an integer until it becomes the
+// entry's float32 once: exact below 2^24, one rounding above.  A pass's
+// keys and entries are int32 (2 Bg W < 2^31 for the Bg read sets a
+// launch takes, ops/pipeline.py::bag_row_groups); every batch offset is
+// 64-bit.
 //
 // Large k (kpop_embedding_bag_wide): bag_histogram computes each window's
 // code in uint64 and looks it up in the cuckoo hash's fingerprints and
@@ -911,7 +917,7 @@ __global__ void bag_slice_sum(const float* __restrict__ ws, int S, int B, int d,
         for (int j = 1; j < S; ++j) sum = __fadd_rn(sum, ws[(size_t)j * n + i]);
         if (normalize) {
             const int nk = n_known[i / d];
-            sum = sum / (float)(nk > 0 ? nk : 1);
+            sum = (float)((double)sum / (double)(nk > 0 ? nk : 1));
         }
         out[i] = sum;
     }

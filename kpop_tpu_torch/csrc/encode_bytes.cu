@@ -54,7 +54,7 @@ constexpr int LOADS = 4;               // loads a thread, in flight together
 constexpr int SPAN = VEC * LOADS;      // a thread's 64 consecutive bytes
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = THREADS * SPAN;  // 16,384: ops/encode.py::ENCODE_CHUNK
-constexpr int MAX_CHUNKS = 65535;      // grid.y
+constexpr int MAX_GRID_Y = 65535;      // a row's chunks take grid.y, then grid.z
 constexpr int8_t DASH = -2;
 
 // the lint table into shared memory (THREADS == 256 entries)
@@ -62,6 +62,10 @@ __device__ __forceinline__ void load_table(const int8_t* table, int8_t* tab) {
     tab[threadIdx.x] = table[threadIdx.x];
     __syncthreads();
 }
+
+// The block's chunk of its row: grid.y, then grid.z past MAX_GRID_Y chunks
+// (a row of more than 1 GiB).
+__device__ __forceinline__ int chunk_of_block() { return blockIdx.y + gridDim.y * blockIdx.z; }
 
 // A row's byte length, inside its stride.
 __device__ __forceinline__ long long row_length(const int32_t* lengths, int r, int stride) {
@@ -149,8 +153,9 @@ __global__ void __launch_bounds__(THREADS)
                  int32_t* __restrict__ work) {
     __shared__ int8_t tab[256];
     __shared__ int red[WARPS];
+    const int r = blockIdx.x, c = chunk_of_block();
+    if (c >= chunks) return;
     load_table(table, tab);
-    const int r = blockIdx.x, c = blockIdx.y;
     const long long len = row_length(lengths, r, stride);
     const long long p0 = (long long)c * CHUNK + threadIdx.x * SPAN;
     uint4 v[LOADS];
@@ -183,8 +188,9 @@ __global__ void __launch_bounds__(THREADS)
     __shared__ int8_t tab[256];
     __shared__ int sums[WARPS];
     __shared__ __align__(16) int8_t staged[CHUNK + 16];  // + a word read past the end
+    const int r = blockIdx.x, c = chunk_of_block();
+    if (c >= chunks) return;
     load_table(table, tab);
-    const int r = blockIdx.x, c = blockIdx.y;
     const long long len = row_length(lengths, r, stride);
     const long long c0 = (long long)c * CHUNK;
     const long long p0 = c0 + threadIdx.x * SPAN;
@@ -244,10 +250,10 @@ extern "C" int kpop_encode_bytes(const uint8_t* bytes, const int32_t* lengths, i
         return (int)cudaErrorInvalidValue;
     // every byte of a row can land in [0, width) once dashes go
     const int chunks = int(((long long)(stride > width ? stride : width) + CHUNK - 1) / CHUNK);
-    if (chunks > MAX_CHUNKS) return (int)cudaErrorInvalidValue;
     if (B == 0) return (int)cudaSuccess;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid(B, chunks);
+    const int gy = chunks < MAX_GRID_Y ? chunks : MAX_GRID_Y;
+    const dim3 grid(B, gy, (chunks + gy - 1) / gy);
     encode_count<<<grid, THREADS, 0, s>>>(bytes, lengths, stride, chunks, table, work);
     encode_scan<<<B, THREADS, 0, s>>>(work, B, chunks);
     encode_write<<<grid, THREADS, 0, s>>>(bytes, lengths, B, stride, width, chunks, table, work,

@@ -204,6 +204,20 @@ def encode_reads_host(
 
 #: the bytes of a row that one block of ``csrc/encode_bytes.cu`` takes
 ENCODE_CHUNK = 16384
+#: most positions (bases, or bytes on the bytes wire) a read set takes on a
+#: card: the kernels index the positions and windows of a read set in
+#: int32, and a block may run up to 2^16 positions past a row's end.  A
+#: batch's offsets (read set times its row) are 64-bit in every kernel.
+READ_MAX_BASES = 2**31 - 2**16
+
+
+def check_row_length(name: str, n: int) -> None:
+    """Raise a ``ValueError`` for read sets of more than
+    :data:`READ_MAX_BASES` positions, which the kernels' int32 positions
+    cannot take."""
+    if n > READ_MAX_BASES:
+        raise ValueError(f"{name}: read sets of {n} positions; the kernels take at most "
+                         f"{READ_MAX_BASES} a read set (int32 positions)")
 
 
 def encode_bytes(rows: torch.Tensor, lengths: torch.Tensor, width: int,
@@ -230,6 +244,7 @@ def encode_bytes(rows: torch.Tensor, lengths: torch.Tensor, width: int,
         raise TypeError("encode_bytes: the table must be [256] int8")
     if width < 1:
         raise ValueError(f"encode_bytes: width {width} < 1")
+    check_row_length("encode_bytes", max(stride, width))
     if rows.device.type == "cpu":
         return encode_bytes_ref(rows, lengths, width, table)
     _build.check_cuda("encode_bytes", rows, lengths, table,

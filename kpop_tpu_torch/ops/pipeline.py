@@ -52,6 +52,7 @@ from .cuckoo import build_cuckoo, cuckoo_lookup_ref, probe_table
 from .encode import (
     PackedReads,
     as_codes,
+    check_row_length,
     lut_k_max,
     packed_strides,
     searchsorted_2limb,
@@ -94,6 +95,9 @@ COUNT_NARROW_MAX = 65535
 #: most read sets a count launch takes: its lookup's grid.y
 COUNT_MAX_ROWS = 65535
 _INT_MAX = 2**31 - 1
+#: most windows a read set on the bag route: a launch's keys and entries
+#: are int32, 2 W of them for one read set
+BAG_MAX_WINDOWS = _INT_MAX // 2
 
 
 class ClassifierParams(nn.Module):
@@ -429,7 +433,8 @@ def vocab_lookup(params: ClassifierParams, base_codes: torch.Tensor) -> torch.Te
 def _check_codes(name: str, params: ClassifierParams, reads):
     """``(B, L)`` of int8 codes ``[B, L]`` or :class:`~.encode.PackedReads`,
     checked: on the 2-bit wire, u8 tensors on one device whose strides
-    match ``L``, and DNA (base 4)."""
+    match ``L``, and DNA (base 4); ``L`` from k to
+    :data:`~.encode.READ_MAX_BASES`."""
     if isinstance(reads, PackedReads):
         packed, valid, L = reads
         ps, vs = packed_strides(L)
@@ -451,6 +456,7 @@ def _check_codes(name: str, params: ClassifierParams, reads):
     B, L = reads.shape
     if L < params.k:
         raise ValueError(f"sequences shorter than k: L={L}, k={params.k}")
+    check_row_length(name, L)
     return B, L
 
 
@@ -478,7 +484,9 @@ def count_spectra_ref(params: ClassifierParams, base_codes: torch.Tensor, row0: 
                       rows: int | None = None, known: bool = False):
     """Plain PyTorch version of :func:`count_spectra`.  A read that repeats
     a k-mer counts it every time: ``index_put_(accumulate=True)``, not
-    ``out[idx] += 1``, which would collapse duplicates."""
+    ``out[idx] += 1``, which would collapse duplicates.  Each cell is
+    counted in int64 and converted to f32 once, as the kernel's integer
+    counters are: exact below 2^24, one rounding above."""
     V = params.n_vocab
     rows = _row_range(params, row0, rows)
     idx = vocab_lookup(params, base_codes)
@@ -486,12 +494,10 @@ def count_spectra_ref(params: ClassifierParams, base_codes: torch.Tensor, row0: 
     at = torch.arange(B, device=idx.device)[:, None].expand(B, W)
     hit = idx < V
     kept = hit & (idx >= row0) & (idx < row0 + rows)
-    out = torch.zeros((B, rows), dtype=torch.float32, device=idx.device)
-    ones = torch.ones(int(kept.sum()), dtype=torch.float32, device=idx.device)
-    out.index_put_((at[kept], idx[kept].long() - row0), ones, accumulate=True)
-    if known:
-        return out, hit.sum(dim=1, dtype=torch.int32)
-    return out
+    out = torch.zeros((B, rows), dtype=torch.int64, device=idx.device)
+    ones = torch.ones(int(kept.sum()), dtype=torch.int64, device=idx.device)
+    out = out.index_put_((at[kept], idx[kept].long() - row0), ones, accumulate=True).float()
+    return (out, hit.sum(dim=1, dtype=torch.int32)) if known else out
 
 
 def count_plan(W: int, V: int) -> tuple[int, int, int]:
@@ -543,7 +549,12 @@ def bag_row_groups(B: int, W: int) -> list[tuple[int, int]]:
     :data:`BAG_GROUP`) while ``2 BAG_GROUP W`` fits in the int32 that
     indexes a pass's keys and entries; above that (``W`` > 8,388,607 at
     ``BAG_GROUP`` = 128) groups of the largest ``Bg`` with ``2 Bg W <=
-    2^31 - 1``."""
+    2^31 - 1`` (12 read sets of 88.8M windows).  Read sets of more than
+    :data:`BAG_MAX_WINDOWS` windows, of which not one fits, raise a
+    ``ValueError``."""
+    if W > BAG_MAX_WINDOWS:
+        raise ValueError(f"project_reads: {W} windows a read set; the bag takes at most "
+                         f"{BAG_MAX_WINDOWS} (int32 keys, 2 a window)")
     rows = min(BAG_GROUP, _INT_MAX // (2 * max(W, 1)))
     return [(0, B)] if rows >= BAG_GROUP else row_groups(B, rows)
 
@@ -552,17 +563,22 @@ def count_spectra(params: ClassifierParams, base_codes, row0: int = 0,
                   rows: int | None = None, known: bool = False):
     """``[B, L]`` int8 base codes, or DNA read sets on the 2-bit wire
     (:class:`~.encode.PackedReads`), -> vocabulary-aligned spectra ``[B,
-    V]`` f32, the same from either.  Counts are exact (integers below 2^24
-    per cell).  Read sets with 2^24 windows or more raise: there the JAX
-    package's f32 count of known windows is not exact either.  A batch above :data:`COUNT_MAX_ROWS`
-    read sets is counted in groups (:func:`count_row_groups`).
+    V]`` f32, the same from either.  Each cell is counted as an integer and
+    converted to f32 once: exact below 2^24, one f32 rounding above.  Read
+    sets of up to :data:`~.encode.READ_MAX_BASES` positions are taken (a
+    longer one raises a ``ValueError``); a batch's offsets are 64-bit.  A
+    batch above :data:`COUNT_MAX_ROWS` read sets is counted in groups
+    (:func:`count_row_groups`).
 
     ``row0`` and ``rows`` count only the vocabulary rows ``[row0, row0 +
     rows)`` into ``[B, rows]`` spectra (a k-mer-sharded rank's,
     :mod:`..parallel.serving`; rows past the vocabulary count nothing);
     the default is the whole vocabulary.  With ``known`` it returns
     ``(spectra, [B] int32 counts of each read set's known windows)``: all
-    of them, in the range or not, the normaliser of a shard's projection.
+    of them, in the range or not, exact, the normaliser of
+    :func:`project` (and of a shard's projection).  On the whole
+    vocabulary the kernel keeps every known window, so that count is the
+    one it keeps anyway.
 
     On a card, ``csrc/count_spectra.cu``: each window is looked up once
     and the known ones' indices appended to an int32 scratch
@@ -578,12 +594,8 @@ def count_spectra(params: ClassifierParams, base_codes, row0: int = 0,
         return count_spectra_ref(params, as_codes(base_codes), row0, rows, known)
     rows = _row_range(params, row0, rows)
     suffix, vocab = vocab_args("count_spectra", params, base_codes)
-    W = L - params.k + 1
-    if W >= 1 << 24:
-        raise ValueError(
-            f"count_spectra: {W} windows a read set; a count above 2^24 is not exact in f32"
-        )
     V = params.n_vocab
+    ranged = row0 != 0 or rows != V
     dev = base_codes.device
     groups = count_row_groups(B)
     Bg = max(b1 - b0 for b0, b1 in groups)
@@ -601,7 +613,7 @@ def count_spectra(params: ClassifierParams, base_codes, row0: int = 0,
         )
         if known:  # a launch of n read sets: its n rows, n kept counts, n known counts
             n = b1 - b0
-            at = count_scratch_ints(n, L, params.k) - n
+            at = count_scratch_ints(n, L, params.k) - (n if ranged else 2 * n)
             n_known[b0:b1] = scratch[at : at + n]
     return (out, n_known) if known else out
 
@@ -665,10 +677,16 @@ def project_reads_ref(
         safe = idx[:, w0 : w0 + chunk].clamp(max=V - 1).long()
         contrib = params.twister[safe] * known[:, w0 : w0 + chunk, None]
         twisted += contrib.sum(dim=1, dtype=torch.float32)  # a bf16 row widened
-    if normalize:
-        counts = known.sum(dim=1).to(torch.float32)
-        twisted /= torch.where(counts == 0, torch.ones_like(counts), counts)[:, None]
-    return twisted
+    return normalized(twisted, known.sum(dim=1)) if normalize else twisted
+
+
+def normalized(out: torch.Tensor, known: torch.Tensor) -> torch.Tensor:
+    """``out [B, d]`` f32 divided by ``known [B]``, each read set's count of
+    known windows (an integer; 0 becomes 1), once, in float64: the
+    correctly rounded f32 quotient at any count, and below 2^24 the same
+    bits as an f32 division (lib/Twister.ml:173-183)."""
+    n = known.to(torch.float64).clamp(min=1.0)
+    return (out.to(torch.float64) / n[:, None]).to(torch.float32)
 
 
 def bag_workspace_ints(B: int, L: int, k: int, V: int) -> int:
@@ -721,15 +739,19 @@ def project_reads(params: ClassifierParams, base_codes, normalize: bool = True) 
     twister's rows are read at 2 bytes an element and widened to f32 in
     the kernel, before the same f32 products and sums, by aligned 8-byte
     words: its rows must start on 16 bytes (:func:`bf16_aligned`; a
-    :class:`ClassifierParams` lays them out so), or it raises.  Read sets
-    with 2^24 windows or more raise (the JAX package's f32 count of known
-    windows is not exact there either); read sets of more than 8,388,607
-    windows are taken in smaller groups (:func:`bag_row_groups`).  DNA read
-    sets on the 2-bit wire (:class:`~.encode.PackedReads`) take the
-    kernel's ``_packed`` entry points, with the same result; on the CPU
-    they are unpacked for the plain version."""
+    :class:`ClassifierParams` lays them out so), or it raises.  Each
+    (read set, row) count is an integer until it multiplies its row, in
+    f32 (exact below 2^24, one rounding above), and each read set's sum is
+    divided once by its integer count of known windows (:func:`normalized`).
+    Read sets of more than 8,388,607 windows are taken in smaller groups,
+    and of more than :data:`BAG_MAX_WINDOWS` raise a ``ValueError``
+    (:func:`bag_row_groups`).  DNA read sets on the 2-bit wire
+    (:class:`~.encode.PackedReads`) take the kernel's ``_packed`` entry
+    points, with the same result; on the CPU they are unpacked for the
+    plain version."""
     B, L = _check_codes("project_reads", params, base_codes)
     check_whole_twister("project_reads", params)
+    groups = bag_row_groups(B, L - params.k + 1)
     if base_codes.device.type == "cpu":
         return project_reads_ref(params, as_codes(base_codes), normalize)
     suffix, vocab = vocab_args("project_reads", params, base_codes)
@@ -743,13 +765,6 @@ def project_reads(params: ClassifierParams, base_codes, normalize: bool = True) 
         raise ValueError("project_reads: a bf16 twister's rows must each start on 16 bytes "
                          f"(row stride {tw.stride(0)}); lay it out with pipeline.bf16_rows")
     V, d = tw.shape
-    W = L - params.k + 1
-    # a window count is exact in an f32 entry below 2^24
-    if W >= 1 << 24:
-        raise ValueError(
-            f"project_reads: {W} windows a read set; a count above 2^24 is not exact in f32"
-        )
-    groups = bag_row_groups(B, W)
     Bg = min(BAG_GROUP, max(b1 - b0 for b0, b1 in groups))
     S = bag_plan(V, d, _sm_count(base_codes.device))
     dev = base_codes.device
@@ -770,25 +785,28 @@ def project_reads(params: ClassifierParams, base_codes, normalize: bool = True) 
 
 
 def project(
-    params: ClassifierParams, spectra: torch.Tensor, normalize: bool = True
+    params: ClassifierParams, spectra: torch.Tensor, normalize: bool = True,
+    known: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Spectra ``[B, V]`` -> twisted coordinates ``[B, d]``: an f32 product
     with the twister, divided by each row's total count (lib/Twister.ml:
     173-183; linear, so the small output is divided, not the spectrum).
 
-    With a bf16 twister the f32 spectrum is cast to bf16, as the JAX
-    package's ``astype`` does (counts above 256 round), and multiplied
-    with an f32 output (:func:`bf16_product`); the row sums are taken on
-    the f32 spectrum."""
+    The total is ``known``, each read set's integer count of its known
+    windows (``count_spectra(..., known=True)``), or without it the
+    spectrum's float64 row sum (exact while its cells are); either is
+    divided once (:func:`normalized`).  With a bf16 twister the f32
+    spectrum is cast to bf16, as the JAX package's ``astype`` does (counts
+    above 256 round), and multiplied with an f32 output
+    (:func:`bf16_product`)."""
     check_whole_twister("project", params)
     if params.twister.dtype == torch.bfloat16:
         out = bf16_product(spectra.to(torch.bfloat16), params.twister)
     else:
         out = spectra @ params.twister
-    if normalize:
-        sums = spectra.sum(dim=1)
-        out = out / torch.where(sums == 0.0, torch.ones_like(sums), sums)[:, None]
-    return out
+    if not normalize:
+        return out
+    return normalized(out, spectra.sum(dim=1, dtype=torch.float64) if known is None else known)
 
 
 def bf16_product_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -917,8 +935,8 @@ def classify_step_packed(
 
 
 def _forward_step(params: ClassifierParams, base_codes, req_len: int):
-    spectra = count_spectra(params, base_codes)
-    twisted = project(params, spectra)
+    spectra, known = count_spectra(params, base_codes, known=True)
+    twisted = project(params, spectra, known=known)
     dmat = distances_to_classes(params, twisted)
     return (*summarize_batch(dmat, req_len), twisted, dmat)
 

@@ -42,6 +42,7 @@ from ..ops.pipeline import (
     bf16_rows,
     count_spectra,
     distances_to_classes,
+    normalized,
     serving_vocab,
 )
 from .mesh import Layout, all_reduce, broadcast_host, split_rows
@@ -155,15 +156,13 @@ def count_shard(params: ClassifierParams, codes: torch.Tensor):
 def project_shard(params: ClassifierParams, spectra: torch.Tensor, known: torch.Tensor,
                   normalize: bool = True) -> torch.Tensor:
     """Steps 2 and 3: the ``[B, d]`` f32 product with the local rows,
-    divided by the global known-window count (0 becomes 1)."""
+    divided once by the global known-window count (0 becomes 1,
+    :func:`~..ops.pipeline.normalized`)."""
     if params.twister.dtype == torch.bfloat16:
         part = bf16_product(spectra.to(torch.bfloat16), params.twister)
     else:
         part = spectra @ params.twister
-    if normalize:
-        total = known.to(torch.float32)
-        part = part / torch.where(total == 0, torch.ones_like(total), total)[:, None]
-    return part
+    return normalized(part, known) if normalize else part
 
 
 def sharded_dmat_fn(mesh: Layout, n_vocab: int, normalize: bool = True):

@@ -32,7 +32,9 @@ PREFIX = "kpop:"
 #: (``<name>.calls``), counted while a profiler records, since :func:`reset`
 COUNTS: Counter[str] = Counter()
 
-_recording = torch.autograd._profiler_enabled
+#: whether a profiler records in this process: what counts are computed
+#: under, where computing them costs more than the check
+recording = torch.autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 
 
@@ -60,14 +62,14 @@ class _Span:
 
 def span(name: str):
     """A context that spans ``name`` while a profiler records."""
-    if not _recording():
+    if not recording():
         return _OFF
     return _Span(name)
 
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name`` while a profiler records."""
-    if _recording():
+    if recording():
         COUNTS[name] += n
 
 

@@ -6,7 +6,7 @@ The count kernel's lookup takes at most COUNT_MAX_ROWS = 65,535 read sets
 a launch (its grid.y); the bag kernel indexes a pass's keys and entries in
 int32, so 2 Bg W must stay within 2^31 - 1 for Bg read sets of W windows.
 A larger batch is counted, or bagged, group by group into its rows of the
-output.  On the CPU the wrappers run their plain versions, whose output
+output; a read set of more windows than one group can hold raises.  On the CPU the wrappers run their plain versions, whose output
 rows each depend only on their own read set: taken in groups, the count
 gives the same bits and the bag the same values within its tolerance."""
 
@@ -62,13 +62,16 @@ def test_bag_above_the_key_limit_takes_groups(B):
 
 
 def test_bag_groups_at_the_windows_guard():
-    """Just below 2^24 windows, the most the wrapper takes (a count above
-    2^24 is not exact in f32): groups of 64 read sets."""
-    W = (1 << 24) - 1
-    groups = tp.bag_row_groups(200, W)
-    covers(groups, 200)
-    assert max(b1 - b0 for b0, b1 in groups) == 64
-    assert 2 * 64 * W <= INT_MAX < 2 * 65 * W
+    """Around 2^24 windows, where the wrappers stopped until they took each
+    read set's integer count of known windows as its normaliser, and past
+    it: just below 2^24 groups of 64 read sets, at 2^24 of 63, and at
+    upstream's M. tuberculosis read sets (88,818,792 windows: 294,102
+    pairs of 150 bp reads joined by N, k = 12) groups of 12."""
+    for W, rows in (((1 << 24) - 1, 64), (1 << 24, 63), (88_818_792, 12)):
+        groups = tp.bag_row_groups(200, W)
+        covers(groups, 200)
+        assert max(b1 - b0 for b0, b1 in groups) == rows
+        assert 2 * rows * W <= INT_MAX < 2 * (rows + 1) * W
 
 
 @pytest.mark.parametrize("rows", [1, 7, 64])

@@ -111,10 +111,15 @@ def test_counters_count_the_batch(trained, counts, path, wire):
     sent = {"codes": codes.nbytes, "packed": B * sum(packed_strides(L)),
             # rows at the longest rounded up to 16 bytes, then int32 lengths
             "bytes": B * (-(-max(map(len, seqs)) // 16) * 16 + 4)}[wire]
+    # the count reads each row of codes at its stride and writes [B, V] f32
+    stride = sum(packed_strides(L)) if wire == "packed" else L
+    count_bytes = B * (stride + 4 * params.n_vocab) if step.path == "dense" else 0
     assert step.path in ("dense", "bag")
     assert {k: v for k, v in counts.items() if not k.endswith((".ns", ".calls"))} == {
         "serve.batches": 1, "serve.queries": len(seqs), "serve.bases": sum(map(len, seqs)),
-        "serve.upload_bytes": sent, "serve.route." + step.path: 1}
+        "serve.upload_bytes": sent, "serve.route." + step.path: 1,
+        "serve.windows": sum(len(s) - K + 1 for s in seqs), "serve.long_rows": 0,
+        "serve.count_bytes": count_bytes}
     assert trace.counters()["launch.kpop_count_spectra"] == _build.LAUNCHES["kpop_count_spectra"]
 
 
