@@ -206,6 +206,11 @@ SLICE_KERNELS = SLICE_CODES_KERNELS + ("kpop_encode_bytes",)
 # phase 3's encode row: the read-set cell's batch of the benchmark, 64 rows
 # of 601,885 bytes
 ENCODE_B, ENCODE_L = 64, 601_885
+# phase 3's count where it buckets: at sars2-reads' batch (ENCODE_B read
+# sets of ENCODE_L bases, k = 10, into READS_V rows) and at TB_B read sets
+# of mtb-reads' (TB_L bases, k = 12, into TB_V rows)
+READS_V = 524_800
+TB_K, TB_B, TB_L, TB_V = 12, 2, 88_818_803, 8_390_656
 # phase 8: the count in the row ranges of COUNT_RANGES ranks
 COUNT_RANGES = 4
 # phase 7: phase 4's corpus counted at k = 16 (two limbs: k_hi 1, k_lo 15),
@@ -313,13 +318,14 @@ def kernel_alone_ms(name: str, *args, reps: int = 10) -> float:
 # ---------------- phase 3: kernels against their plain versions ----------
 
 
-def random_params(rng, dev, V: int, d: int, C: int):
-    """Classifier parameters with a random k=10 vocabulary of V k-mers."""
+def random_params(rng, dev, V: int, d: int, C: int, k: int = K):
+    """Classifier parameters with a random vocabulary of V k-mers (k = 10
+    unless ``k`` says), the all-A k-mer row 0."""
     import torch
 
     from kpop_tpu_torch.ops.pipeline import ClassifierParams
 
-    n = 4**K
+    n = 4**k
     perm = rng.permutation(n)
     pos0 = int(np.nonzero(perm == 0)[0][0])
     perm[[0, pos0]] = perm[[pos0, 0]]  # the all-A k-mer is in the vocabulary
@@ -336,7 +342,7 @@ def random_params(rng, dev, V: int, d: int, C: int):
     return ClassifierParams(
         torch.as_tensor(lut, device=dev),
         f32(rng.standard_normal((V, d))),
-        f32(metric), f32(coords), f32(norms), k=K, canonical=True,
+        f32(metric), f32(coords), f32(norms), k=k, canonical=True,
     )
 
 
@@ -1012,23 +1018,89 @@ def count_check(params, codes, what: str):
         raise AssertionError(
             "count_spectra at %s differs from its plain version at %d cells, from itself at %d"
             % (what, int((got != want).sum()), int((got != again).sum())))
-    B, L = codes.shape
-    W = L - params.k + 1
-    scratch = torch.empty(pl.count_scratch_ints(B, L, params.k), dtype=torch.int32,
-                          device=codes.device)
-    out = torch.empty_like(got)
-    suffix, vocab = pl.vocab_args("count_spectra", params, codes)
-    alone = kernel_alone_ms(
-        "kpop_count_spectra" + suffix, codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, *vocab, params.n_vocab, 0, params.n_vocab, 0, scratch.data_ptr(),
-        out.data_ptr())
+    plan = pl.count_plan(codes.shape[1] - params.k + 1, params.n_vocab)
+    alone = count_alone_ms(params, codes)
     wrapper = time_ms(lambda: pl.count_spectra(params, codes))
-    bits, cells, slices = pl.count_plan(W, params.n_vocab)
     log("kernel count_spectra at %s: %s (plain and a second call); %d slices of %d u%d "
-        "counters; kernels alone %.4f ms, wrapper %.4f ms"
-        % (what, COUNT_TOL, slices, cells, bits, alone, wrapper))
-    del again, want, scratch, out
+        "counters, %s; kernels alone %.4f ms, wrapper %.4f ms"
+        % (what, COUNT_TOL, plan.slices, plan.cells, plan.bits,
+           "bucketed" if plan.bucket else "read-all", alone, wrapper))
+    del again, want
     return got
+
+
+def count_bucketed_rows(dev, shapes=((ENCODE_B, ENCODE_L, K, READS_V),
+                                      (TB_B, TB_L, TB_K, TB_V))) -> dict:
+    """The count at the read-set cells' shapes, where ``count_plan``
+    buckets (asserted): read sets shaped as :func:`read_like_codes` makes
+    them (the second of one k-mer, all in one bucket) at each ``(B, L, k,
+    V)`` of ``shapes``, each torch.equal to its plain version on the whole
+    vocabulary and in COUNT_RANGES row ranges with every read set's known
+    windows (:func:`count_check`, :func:`count_rows_check`), the one-k-mer
+    read set counted at every window.  Returns the kernel table's row of
+    the first shape: the wrapper's time, its kernels' alone, the plain
+    version's, and the bound (codes and LUT read once, the spectra written
+    once)."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    row = None
+    for i, (B, L, k, V) in enumerate(shapes):
+        rng = np.random.default_rng(21 + i)
+        params = random_params(rng, dev, V, 8, 4, k)
+        codes = torch.as_tensor(read_like_codes(rng, B, L), device=dev)
+        W = L - k + 1
+        ranged = pl.count_plan(W, -(-V // COUNT_RANGES))
+        if not (pl.count_plan(W, V).bucket and ranged.bucket):
+            raise AssertionError(f"count_plan reads all at {B} x {W} windows, k = {k}, V = {V}")
+        what = f"[{B}, {L}], k={k}, V={V}"
+        got = count_check(params, codes, what)
+        one = float(got[1, 0])
+        if one != float(np.float32(W)):
+            raise AssertionError(f"count_spectra at {what}: the one-k-mer read set counted {one} "
+                                 f"of {W} windows")
+        count_rows_check(params, codes, what)
+        if row is None:
+            row = dict(
+                bound(codes.nbytes + params.vocab_lut.nbytes + got.nbytes,
+                      B * W / F32_FLOPS * 1e3),
+                library_ms=None, err=0.0, tol=COUNT_TOL,
+                ms=time_ms(lambda: pl.count_spectra(params, codes)),
+                alone_ms=count_alone_ms(params, codes),
+                plain_ms=time_ms(lambda: pl.count_spectra_ref(params, codes), reps=3),
+                shape=f"[{B}, {L}] int8 codes, k={k}, V={V}: the bucketed plan (the slice "
+                      "path's launches count genomes, read-all)",
+                source="kpop_tpu_torch/csrc/count_spectra.cu",
+                replaces="kpop_tpu/ops/pipeline.py:179",
+                launch="kpop_count_spectra", path="slice",
+            )
+        del params, codes, got
+        torch.cuda.empty_cache()
+    return row
+
+
+def count_alone_ms(params, codes, row0: int = 0, rows: int | None = None, known: bool = False,
+                   wire=None) -> float:
+    """The count's kernels alone (:func:`kernel_alone_ms`) on the read sets
+    of ``codes``, or on the same read sets on the 2-bit ``wire``
+    (``PackedReads``), into rows ``[row0, row0 + rows)``, with the plan and
+    scratch that ``count_spectra`` takes (``pipeline.count_workspace``)."""
+    import torch
+
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    B, L = codes.shape
+    V = params.n_vocab
+    rows = V if rows is None else rows
+    suffix, vocab = pl.vocab_args("count_spectra", params, codes)
+    bucket, scratch = pl.count_workspace(B, L, params.k, rows, codes.device)
+    out = torch.empty((B, rows), dtype=torch.float32, device=codes.device)
+    name, reads = ("kpop_count_spectra" + suffix, (codes.data_ptr(),)) if wire is None else (
+        "kpop_count_spectra" + suffix + "_packed", (wire.packed.data_ptr(), wire.valid.data_ptr()))
+    return kernel_alone_ms(name, *reads, B, L, params.k, int(params.canonical), params.base,
+                           *vocab, V, row0, rows, int(known), bucket, scratch.data_ptr(),
+                           out.data_ptr())
 
 
 def count_rows_check(params, codes, what: str, timed: bool = False):
@@ -1068,14 +1140,7 @@ def count_rows_check(params, codes, what: str, timed: bool = False):
     B, L = codes.shape
     ranges_ms = [time_ms(lambda: pl.count_spectra(params, codes, j * V_local, V_local, known=True))
                  for j in range(COUNT_RANGES)]
-    scratch = torch.empty(pl.count_scratch_ints(B, L, params.k), dtype=torch.int32,
-                          device=codes.device)
-    out = torch.empty((B, V_local), dtype=torch.float32, device=codes.device)
-    suffix, vocab = pl.vocab_args("count_spectra", params, codes)
-    alone = kernel_alone_ms(
-        "kpop_count_spectra" + suffix, codes.data_ptr(), B, L, params.k, int(params.canonical),
-        params.base, *vocab, V, 0, V_local, 1, scratch.data_ptr(), out.data_ptr())
-    del scratch, out
+    alone = count_alone_ms(params, codes, 0, V_local, True)
     log("kernel count_spectra rows at %s: ms as called by range %s, the first range's kernels "
         "alone %.4f ms; the whole vocabulary %.4f ms as called"
         % (what, ", ".join("%.4f" % t for t in ranges_ms), alone,
@@ -1387,6 +1452,7 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
         replaces="kpop_tpu/ops/pipeline.py:179",
         launch="kpop_count_spectra", path="slice",
     )
+    rows["count_spectra_bucketed"] = count_bucketed_rows(dev)
     # the dense route's product with the twister cast to bf16
     bf16_product_check(got, params.twister)
     del got
@@ -1627,17 +1693,10 @@ def packed_count_row(params, codes, table, what: str, replaces: str, path: str,
         raise AssertionError(f"packed count at {what}: equal to (the int8 entry point, the plain "
                              f"version): {same}")
     B, L = codes.shape
-    suffix, vocab = pl.vocab_args("count_spectra", params, codes)
-    scratch = torch.empty(pl.count_scratch_ints(B, L, params.k), dtype=torch.int32,
-                          device=codes.device)
-    out = torch.empty((B, rows), dtype=torch.float32, device=codes.device)
-    args = (B, L, params.k, int(params.canonical), params.base, *vocab, V, row0, rows, int(known),
-            scratch.data_ptr(), out.data_ptr())
-    name = "kpop_count_spectra" + suffix
-    alone = kernel_alone_ms(name + "_packed", reads.packed.data_ptr(), reads.valid.data_ptr(),
-                            *args)
-    int8_alone = kernel_alone_ms(name, codes.data_ptr(), *args)
-    del scratch, out, twin, want
+    name = "kpop_count_spectra" + pl.vocab_args("count_spectra", params, codes)[0]
+    alone = count_alone_ms(params, codes, row0, rows, known, reads)
+    int8_alone = count_alone_ms(params, codes, row0, rows, known)
+    del twin, want
     ms, int8_ms = time_ms(lambda: count(reads)), time_ms(lambda: count(codes))
     plain_ms = time_ms(plain, reps=3)
     W = L - params.k + 1

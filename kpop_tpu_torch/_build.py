@@ -48,9 +48,11 @@ _SIGNATURES = {
     # a, b, metric, na, nb, out, workspace, Q, T, D, feature slices, stream
     "kpop_pairwise_dist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # codes, B, L, k, canonical, base, lut, V, first row, rows, known
-    # (count each read set's known windows), index scratch, out, stream
-    "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P),
-    "kpop_count_spectra_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _I, _I, _I, _P, _P, _P),
+    # (count each read set's known windows), bucket (the bucketed plan),
+    # index scratch, out, stream
+    "kpop_count_spectra": (_P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "kpop_count_spectra_wide": (_P, _I, _I, _I, _I, _I, *_WIDE, _I, _I, _I, _I, _I, _P, _P,
+                                _P),
     # codes, B, L, k, canonical, base, lut, V, twister, its row type (0
     # f32, 1 bf16), d, its row stride, normalize, slices, int workspace,
     # float workspace, out, stream
@@ -60,9 +62,10 @@ _SIGNATURES = {
                                 _P, _P),
     # the same four on the 2-bit wire: packed and valid bytes in place of
     # the codes (DNA, base 4)
-    "kpop_count_spectra_packed": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P),
-    "kpop_count_spectra_wide_packed": (_P, _P, _I, _I, _I, _I, _I, *_WIDE, _I, _I, _I, _I, _P, _P,
-                                       _P),
+    "kpop_count_spectra_packed": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                                  _P),
+    "kpop_count_spectra_wide_packed": (_P, _P, _I, _I, _I, _I, _I, *_WIDE, _I, _I, _I, _I, _I,
+                                       _P, _P, _P),
     "kpop_embedding_bag_packed": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P,
                                   _P, _P, _P),
     "kpop_embedding_bag_wide_packed": (_P, _P, _I, _I, _I, _I, _I, *_WIDE, _I, _P, _I, _I, _I, _I,

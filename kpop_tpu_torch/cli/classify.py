@@ -66,6 +66,7 @@ from ..ops.pipeline import (
     ClassifierParams,
     build_classifier_params,
     check_whole_twister,
+    count_plan,
     count_spectra,
     distances_to_classes,
     project,
@@ -254,7 +255,8 @@ class DeviceStep:
         ``rows`` rows of codes it reads at their stride (``length`` bases,
         or the 2-bit wire's bytes a row) and the ``[rows, V]`` f32 spectra
         it writes (a shard's rows on a k-mer-sharded rank); 0 on the bag
-        route."""
+        route.  ``serve.count_bucketed`` counts the batch where the count
+        takes its bucketed plan (:func:`count_plan`)."""
         if not trace.recording():
             return
         k = self.params.k
@@ -264,8 +266,10 @@ class DeviceStep:
         trace.count("serve.long_rows", sum(w >= 1 << 24 for w in windows))
         stride = sum(packed_strides(length)) if self.wire == "packed" else length
         counted = self.dmat is not None or self.path != "bag"
-        trace.count("serve.count_bytes",
-                    rows * (stride + 4 * self.params.twister.shape[0]) if counted else 0)
+        V = self.params.twister.shape[0]
+        trace.count("serve.count_bytes", rows * (stride + 4 * V) if counted else 0)
+        trace.count("serve.count_bucketed",
+                    int(counted and count_plan(length - k + 1, V).bucket))
 
     def _pick_path(self, rows: int, length: int) -> None:
         """Pin ``"auto"`` by :func:`pick_path` on the first (full) batch."""

@@ -39,6 +39,8 @@ it as it is, with the same result (:func:`classify_step_packed`).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from torch import nn
@@ -92,6 +94,9 @@ COUNT_RUN = 8
 COUNT_SLICE_BYTES = 96 * 1024
 #: most windows a read set for the count kernel's u16 counters
 COUNT_NARROW_MAX = 65535
+#: most slices of the count's bucketed plan: its scatter's bins in shared
+#: memory
+COUNT_BUCKET_SLICES = 8192
 #: most read sets a count launch takes: its lookup's grid.y
 COUNT_MAX_ROWS = 65535
 _INT_MAX = 2**31 - 1
@@ -500,33 +505,87 @@ def count_spectra_ref(params: ClassifierParams, base_codes: torch.Tensor, row0: 
     return (out, hit.sum(dim=1, dtype=torch.int32)) if known else out
 
 
-def count_plan(W: int, V: int) -> tuple[int, int, int]:
-    """The count kernel's plan for read sets of ``W`` windows and a
-    vocabulary of ``V``: counter bits (16 while no cell can exceed 65,535,
-    else 32), cells a slice of ``COUNT_SLICE_BYTES`` and slices."""
+class CountPlan(NamedTuple):
+    """The count kernel's plan (:func:`count_plan`)."""
+
+    bits: int  #: counter bits
+    cells: int  #: cells a slice
+    slices: int  #: slices of the counted rows
+    bucket: bool  #: the bucketed plan, else the read-all one
+
+
+def count_plan(W: int, rows: int) -> CountPlan:
+    """The count kernel's plan for read sets of ``W`` windows into ``rows``
+    vocabulary rows: counter bits (16 while no cell can exceed 65,535, else
+    32), cells a slice of ``COUNT_SLICE_BYTES``, slices, and whether it
+    buckets.
+
+    The read-all plan has each (slice, read set) task read the read set's
+    whole row of kept indices, so a row is read once a slice; the bucketed
+    plan sorts each row by slice first (a histogram, a scan and a scatter:
+    three more launches, the row read twice more and written once), so a
+    task reads only its bucket.  The count buckets where the read sets take
+    u32 counters (more than ``COUNT_NARROW_MAX`` windows) and the rows span
+    more than one slice and at most :data:`COUNT_BUCKET_SLICES` (its
+    scatter's bins).  The cut follows the counter width because that is
+    where the measurements on an H100 split: bucketed was faster at every
+    u32 shape probed (by 8 % at 65,536 windows a read set, 1.8x at
+    sars2-reads' 601,876 windows and 22 slices, 4.9x at 88.8M windows and
+    342 slices), read-all at six of the seven u16 shapes (by 3-21 %,
+    sars2-genomes' 8 % among them); the seventh, real reads at k = 16 with
+    93 % of their windows kept, ran 5 % faster bucketed.  Which plan wins
+    at u16 turns on how many windows the vocabulary keeps, which the host
+    does not see before the lookup."""
     bits = 16 if W <= COUNT_NARROW_MAX else 32
     cells = COUNT_SLICE_BYTES * 8 // bits
-    return bits, cells, -(-V // cells)
+    slices = -(-rows // cells)
+    return CountPlan(bits, cells, slices, bits == 32 and 1 < slices <= COUNT_BUCKET_SLICES)
 
 
-def count_tasks(slices: int, B: int, blocks: int) -> list[range]:
-    """The count kernel's split of its ``slices * B`` (slice, read set)
-    tasks, slice-major (task ``s B + b``), over ``blocks`` blocks, at most
-    one wave of them: block g takes ``[g T / G, (g + 1) T / G)``, so no two
-    blocks differ by more than one task."""
-    T = slices * B
-    G = max(1, min(T, blocks))
-    return [range(T * g // G, T * (g + 1) // G) for g in range(G)]
+def count_tasks(B: int, slices: int, sizes=None) -> list[int]:
+    """The order in which the count kernel's queue hands out its ``slices *
+    B`` (slice, read set) tasks, task ``s B + b``; each block of its one
+    wave takes the next task as it finishes one.  The read-all plan
+    (``sizes`` None) is slice-major.  The bucketed plan takes the ``[B,
+    slices]`` bucket sizes and queues a task larger than twice its read
+    set's mean bucket first, the rest after; the kernel queues each group
+    in any order (here in task order)."""
+    tasks = range(slices * B)
+    if sizes is None:
+        return list(tasks)
+    n = [sum(row) for row in sizes]
+    big = [sizes[t % B][t // B] * slices > 2 * n[t % B] for t in tasks]
+    return [t for t in tasks if big[t]] + [t for t in tasks if not big[t]]
 
 
-def count_scratch_ints(B: int, L: int, k: int) -> int:
-    """The count kernel's int32 scratch: each read set's row of ``Wp`` (its
-    windows rounded up to ``COUNT_RUN``), where the lookup appends the
-    vocabulary indices of the known windows in the row range (less the
-    range's first row), then each read set's count of them, then its count
-    of all known windows."""
+def count_scratch_ints(B: int, L: int, k: int, rows: int, bucket: bool | None = None) -> int:
+    """The count kernel's int32 scratch for ``B`` read sets of ``L``
+    positions into ``rows`` vocabulary rows: each read set's count of kept
+    windows (the known windows in the row range), its count of all known
+    windows, the task queue (two ints) and the bucket queue's head and
+    tail; in the bucketed plan each bucket's end, its start and the queue
+    of tasks (``B`` times the slices each); padded to 4 ints; then each
+    read set's row of ``Wp`` (its windows rounded up to ``COUNT_RUN``),
+    where the lookup appends the vocabulary indices of the kept windows
+    (less the range's first row), and in the bucketed plan a second such
+    row, where they are sorted by slice.  The plan is :func:`count_plan`'s
+    unless ``bucket`` names one."""
     W = L - k + 1
-    return B * (-(-W // COUNT_RUN) * COUNT_RUN) + 2 * B
+    Wp = -(-max(W, 0) // COUNT_RUN) * COUNT_RUN
+    plan = count_plan(W, rows)
+    bucket = plan.bucket if bucket is None else bucket
+    BS = B * plan.slices if bucket else 0
+    return -(-(2 * B + 4 + 3 * BS) // 4) * 4 + B * Wp * (2 if bucket else 1)
+
+
+def count_workspace(B: int, L: int, k: int, rows: int, device) -> tuple[int, torch.Tensor]:
+    """What a launch of the count's C entry points takes for ``B`` read
+    sets of ``L`` positions into ``rows`` vocabulary rows before its
+    output: the plan (1 bucketed, 0 read-all: :func:`count_plan`) and an
+    int32 scratch laid out for that plan (:func:`count_scratch_ints`)."""
+    bucket = count_plan(L - k + 1, rows).bucket
+    ints = count_scratch_ints(B, L, k, rows, bucket)
+    return int(bucket), torch.empty(ints, dtype=torch.int32, device=device)
 
 
 def row_groups(B: int, rows: int) -> list[tuple[int, int]]:
@@ -581,11 +640,13 @@ def count_spectra(params: ClassifierParams, base_codes, row0: int = 0,
     one it keeps anyway.
 
     On a card, ``csrc/count_spectra.cu``: each window is looked up once
-    and the known ones' indices appended to an int32 scratch
-    (:func:`count_scratch_ints`), then one wave of blocks takes the
-    (vocabulary slice, read set) tasks (:func:`count_tasks`), counts each
-    in shared memory (:func:`count_plan`) and writes its slice whole, so
-    the output needs no zeroing.  The 2-bit wire takes the kernel's
+    and the kept ones' indices appended to an int32 scratch
+    (:func:`count_workspace`); on long read sets they are then sorted
+    into a bucket a vocabulary slice (:func:`count_plan`); then one wave of
+    blocks takes the (slice, read set) tasks from a queue
+    (:func:`count_tasks`), counts each in shared memory from its bucket (or
+    from the read set's whole row) and writes its slice whole, so the
+    output needs no zeroing.  The 2-bit wire takes the kernel's
     ``_packed`` entry points, which read each base from the packed bytes
     where the int8 ones read a code; on the CPU it is unpacked
     (:func:`~.encode.unpack_2bit_batch`) for the plain version."""
@@ -599,7 +660,7 @@ def count_spectra(params: ClassifierParams, base_codes, row0: int = 0,
     dev = base_codes.device
     groups = count_row_groups(B)
     Bg = max(b1 - b0 for b0, b1 in groups)
-    scratch = torch.empty(count_scratch_ints(Bg, L, params.k), dtype=torch.int32, device=dev)
+    bucket, scratch = count_workspace(Bg, L, params.k, rows, dev)
     out = torch.empty((B, rows), dtype=torch.float32, device=dev)
     n_known = torch.empty(B, dtype=torch.int32, device=dev) if known else None
     out_p = out.data_ptr()
@@ -608,12 +669,12 @@ def count_spectra(params: ClassifierParams, base_codes, row0: int = 0,
         _build.launch(
             "kpop_count_spectra" + suffix + wire,
             *reads, b1 - b0, L, params.k, int(params.canonical),
-            params.base, *vocab, V, row0, rows, int(known), scratch.data_ptr(),
+            params.base, *vocab, V, row0, rows, int(known), bucket, scratch.data_ptr(),
             out_p + 4 * b0 * rows,
         )
-        if known:  # a launch of n read sets: its n rows, n kept counts, n known counts
+        if known:  # a launch of n read sets: n kept counts, then n known counts
             n = b1 - b0
-            at = count_scratch_ints(n, L, params.k) - (n if ranged else 2 * n)
+            at = n if ranged else 0
             n_known[b0:b1] = scratch[at : at + n]
     return (out, n_known) if known else out
 

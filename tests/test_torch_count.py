@@ -2,16 +2,24 @@
 emulated on the CPU step by step, against the plain version
 count_spectra_ref and the JAX package's count_spectra.
 
-The kernel runs only on the card.  Its plan is emulated here: each thread
-looks up COUNT_RUN consecutive windows with a rolling forward and reverse-
-complement code, and each block appends its known windows' indices to
-the read set's row of the scratch, blocks in any order; then one wave of
-blocks takes the (vocabulary slice, read set) tasks as count_tasks splits
-them, merges each thread's runs of equal indices, adds each run to u16
-(two a 32-bit word) or u32 counters as count_plan chooses by the windows a
-read set, and writes the slice whole by counter quads.  The emulation
-checks that no u16 cell carries into its neighbour and that every output
-cell is written exactly once.
+The kernel runs only on the card.  Its plans are emulated here: each
+thread looks up COUNT_RUN consecutive windows with a rolling forward and
+reverse-complement code, and each block appends its kept windows' indices
+to the read set's row of the scratch, blocks in any order.  In the
+bucketed plan the kept indices are then counted by slice (a histogram over
+tiles), scanned into each read set's bucket offsets, and scattered tile by
+tile, each tile sorted by slice and each slice's run placed at an offset
+claimed in any order, into a second row; every kept index must land in
+exactly one bucket, of its own slice.  Then one wave of blocks takes the
+(vocabulary slice, read set) tasks from a queue in count_tasks' order (the
+large buckets first, each group in any order), reads the task's bucket (or
+the whole kept row in the read-all plan) by 16-byte loads, merges each
+thread's runs of equal indices, adds each run to u16 (two a 32-bit word)
+or u32 counters as count_plan chooses by the windows a read set, and
+writes the slice whole by counter quads.  The emulation checks that a
+bucketed task reads only its bucket, that no u16 cell carries into its
+neighbour and that every output cell is written exactly once.  Both plans
+are emulated on every input, whichever count_plan picks.
 
 Tolerance: none.  Counts are integers, so the spectra are held equal
 (np.array_equal) to the plain version and to JAX."""
@@ -113,61 +121,135 @@ def emulate_lookup(params, codes: np.ndarray, seed: int = 0, row0: int = 0, n_ro
     return out, n, n_known
 
 
-def emulate_slices(idx: np.ndarray, n_idx: np.ndarray, V: int, W: int, blocks: int = 264):
-    """count_slices: the ``[B, V]`` f32 spectra, and the most atomics one
-    counter of each read set took.  The (slice, read set) tasks go to the
-    blocks as count_tasks splits them; a task reads the read set's first
-    n_idx[b] indices (the rest masked), each thread merging equal
-    neighbours of its COUNT_RUN before one atomic, into counters shifted by
-    the slice's place within its 16-byte line of the output; then every
-    counter quad is read, zeroed and stored."""
-    bits, cells, S = tp.count_plan(W, V)
+#: kept indices a histogram block and a scatter block of the bucketed plan
+#: take (csrc/count_spectra.cu's HIST_TILE and SCATTER_TILE)
+HIST_TILE, SCATTER_TILE = 16 * 512 * tp.COUNT_RUN, 512 * 16
+
+
+def emulate_bucket(idx: np.ndarray, n_idx: np.ndarray, cells: int, S: int, seed: int = 0,
+                   hist_tile: int = HIST_TILE, tile: int = SCATTER_TILE):
+    """The bucketed plan's histogram, scan and scatter: each read set's kept
+    indices counted by slice tile by tile, its buckets' offsets by an
+    exclusive scan, then each tile (in any order: ``seed``) sorted by slice,
+    each slice's run in any order, placed at the bucket's next free place.
+    Returns the bucketed ``[B, Wp]`` rows (garbage past each read set's
+    count) and each bucket's ``[B, S]`` start and end."""
+    rng = np.random.default_rng(seed)
     B, Wp = idx.shape
+    counts = np.zeros((B, S), dtype=np.int64)
+    for b in range(B):
+        for t0 in range(0, n_idx[b], hist_tile):
+            counts[b] += np.bincount(idx[b, t0: min(n_idx[b], t0 + hist_tile)] // cells,
+                                     minlength=S)
+    start = np.cumsum(counts, axis=1) - counts
+    end = start.copy()
+    bkt = rng.integers(0, 2**32, size=(B, Wp), dtype=np.uint64).astype(np.uint32)
+    for b in range(B):
+        for t0 in rng.permutation(np.arange(0, n_idx[b], tile)):
+            vals = idx[b, t0: min(n_idx[b], t0 + tile)]
+            for s in np.unique(vals // cells):
+                run = rng.permutation(vals[vals // cells == s])
+                bkt[b, end[b, s]: end[b, s] + len(run)] = run
+                end[b, s] += len(run)
+    assert np.array_equal(end, start + counts)
+    for b in range(B):
+        assert start[b, 0] == 0 and end[b, -1] == n_idx[b]
+        assert np.array_equal(start[b, 1:], end[b, :-1])
+        kept = bkt[b, : n_idx[b]]
+        # every kept index in exactly one bucket, of its own slice
+        assert np.array_equal(np.sort(kept), np.sort(idx[b, : n_idx[b]]))
+        assert np.array_equal(kept // cells, np.repeat(np.arange(S), counts[b]))
+    return bkt, start, end
+
+
+def queue_order(B: int, S: int, sizes, seed: int) -> list[int]:
+    """count_tasks' order with each of its groups (large buckets, the rest)
+    shuffled, as the scan's atomics queue them."""
+    order = tp.count_tasks(B, S, sizes)
+    if sizes is None:
+        return order
+    rng = np.random.default_rng(seed)
+    n = np.asarray(sizes).sum(axis=1)
+    big = sum(sizes[t % B][t // B] * S > 2 * n[t % B] for t in order)
+    return list(rng.permutation(order[:big])) + list(rng.permutation(order[big:]))
+
+
+def emulate_slices(idx: np.ndarray, n_idx: np.ndarray, V: int, W: int, bucket: bool,
+                   seed: int = 0):
+    """count_slices in either plan: the ``[B, V]`` f32 spectra, and the most
+    atomics one counter of each read set took.  The (slice, read set)
+    tasks are taken in the queue's order; a task reads its indices (the
+    bucket, or the read set's first n_idx[b]) by 16-byte loads from their
+    first position rounded down to 4, the rest masked, each thread merging
+    equal neighbours of its COUNT_RUN before one atomic, into counters
+    shifted by the slice's place within its 16-byte line of the output;
+    then every counter quad is read, zeroed and stored."""
+    bits, cells, S, _ = tp.count_plan(W, V)
+    B, Wp = idx.shape
+    if bucket:
+        rows, start, end = emulate_bucket(idx, n_idx, cells, S, seed)
+        order = queue_order(B, S, (end - start).tolist(), seed)
+    else:
+        rows, start, end = idx, np.zeros((B, S), np.int64), np.repeat(n_idx[:, None], S, axis=1)
+        order = queue_order(B, S, None, seed)
+    assert sorted(order) == list(range(S * B)), "the queue hands out every task once"
     out = np.full((B, V), np.nan, dtype=np.float32)
     writes = np.zeros((B, V), dtype=np.int64)
     most_atomics = np.zeros(B, dtype=np.int64)
-    for tasks in tp.count_tasks(S, B, blocks):
-        for task in tasks:
-            s, b = divmod(task, B)
-            runs = np.where(np.arange(Wp) < n_idx[b], idx[b], MISS).reshape(-1, tp.COUNT_RUN)
-            # each thread's runs of equal neighbours: one atomic each
-            starts = np.ones(runs.shape, dtype=bool)
-            starts[:, 1:] = runs[:, 1:] != runs[:, :-1]
-            lens = np.diff(np.append(np.flatnonzero(starts.ravel()), runs.size))
-            heads = runs.ravel()[starts.ravel()]
-            lo, n = s * cells, min(cells, V - s * cells)
-            shift = (b * V + lo) % 4
-            cell = (heads.astype(np.int64) - lo) & 0xFFFFFFFF  # u32 wrap, as the kernel
-            mine = cell < n
-            at = cell[mine] + shift
-            if bits == 16:
-                words = np.zeros(cells // 2 + 2, dtype=np.int64)
-                np.add.at(words, at >> 1, lens[mine] << (16 * (at & 1)))
-                assert (words >> 32 == 0).all(), "a u16 pair overflowed its word"
-                counts = np.stack([words & 0xFFFF, words >> 16], axis=1).ravel()
-                # no low half carried into its high half
-                assert (counts == np.bincount(at, lens[mine], minlength=len(counts))).all()
-            else:
-                counts = np.bincount(at, lens[mine], minlength=cells + 4).astype(np.int64)
-                assert (counts < 2**32).all()
-            assert not counts[:shift].any() and not counts[n + shift :].any()
-            if mine.any():
-                most_atomics[b] = max(most_atomics[b], int(np.bincount(cell[mine]).max()))
-            # counter quad q holds output cells 4 q - shift .. 4 q + 3 - shift
-            for q in range((n + shift + 3) // 4):
-                for i in range(4):
-                    c = 4 * q + i - shift
-                    if 0 <= c < n:
-                        out[b, lo + c] = np.float32(counts[4 * q + i])
-                        writes[b, lo + c] += 1
+    for task in order:
+        s, b = divmod(task, B)
+        a, e = int(start[b, s]), int(end[b, s])
+        a0 = a & ~3
+        pos = np.arange(a0, a0 + -(-(max(e, a0) - a0) // tp.COUNT_RUN) * tp.COUNT_RUN)
+        # the kernel loads a quad only where it starts before e, so below Wp
+        read = (pos >= a) & (pos < e)
+        runs = np.where(read, rows[b, np.minimum(pos, Wp - 1)], MISS).reshape(-1, tp.COUNT_RUN)
+        lo, n = s * cells, min(cells, V - s * cells)
+        if bucket:  # a task reads only its bucket
+            read = runs[runs != MISS]
+            assert len(read) == e - a and (read // cells == s).all()
+        # each thread's runs of equal neighbours: one atomic each
+        starts = np.ones(runs.shape, dtype=bool)
+        starts[:, 1:] = runs[:, 1:] != runs[:, :-1]
+        lens = np.diff(np.append(np.flatnonzero(starts.ravel()), runs.size))
+        heads = runs.ravel()[starts.ravel()]
+        shift = (b * V + lo) % 4
+        cell = (heads.astype(np.int64) - lo) & 0xFFFFFFFF  # u32 wrap, as the kernel
+        mine = cell < n
+        at = cell[mine] + shift
+        if bits == 16:
+            words = np.zeros(cells // 2 + 2, dtype=np.int64)
+            np.add.at(words, at >> 1, lens[mine] << (16 * (at & 1)))
+            assert (words >> 32 == 0).all(), "a u16 pair overflowed its word"
+            counts = np.stack([words & 0xFFFF, words >> 16], axis=1).ravel()
+            # no low half carried into its high half
+            assert (counts == np.bincount(at, lens[mine], minlength=len(counts))).all()
+        else:
+            counts = np.bincount(at, lens[mine], minlength=cells + 4).astype(np.int64)
+            assert (counts < 2**32).all()
+        assert not counts[:shift].any() and not counts[n + shift :].any()
+        if mine.any():
+            most_atomics[b] = max(most_atomics[b], int(np.bincount(cell[mine]).max()))
+        # counter quad q holds output cells 4 q - shift .. 4 q + 3 - shift
+        for q in range((n + shift + 3) // 4):
+            for i in range(4):
+                c = 4 * q + i - shift
+                if 0 <= c < n:
+                    out[b, lo + c] = np.float32(counts[4 * q + i])
+                    writes[b, lo + c] += 1
     assert (writes == 1).all(), "every cell is written once"
     return out, most_atomics
 
 
-def emulate_count(params, codes: np.ndarray):
+def emulate_count(params, codes: np.ndarray, seed: int = 0):
+    """Both plans from one emulated lookup, equal; returns the one
+    count_plan picks."""
     W = codes.shape[1] - params.k + 1
-    idx, n, _ = emulate_lookup(params, codes)
-    return emulate_slices(idx, n, params.n_vocab, W)
+    idx, n, _ = emulate_lookup(params, codes, seed)
+    got = {bucket: emulate_slices(idx, n, params.n_vocab, W, bucket, seed)
+           for bucket in (False, True)}
+    assert np.array_equal(got[False][0], got[True][0])
+    return got[tp.count_plan(W, params.n_vocab).bucket]
 
 
 def read_like(seed, B, L, base=4):
@@ -230,10 +312,28 @@ def test_emulated_count_matches_plain_and_jax(monkeypatch, name):
 
 
 def test_count_plan_picks_counters_by_windows():
-    assert tp.count_plan(1, 367_987) == (16, 49_152, 8)
-    assert tp.count_plan(30_199, 367_987) == (16, 49_152, 8)
-    assert tp.count_plan(tp.COUNT_NARROW_MAX, 5) == (16, 49_152, 1)
-    assert tp.count_plan(tp.COUNT_NARROW_MAX + 1, 367_987) == (32, 24_576, 15)
+    assert tp.count_plan(1, 367_987) == (16, 49_152, 8, False)
+    assert tp.count_plan(30_199, 367_987) == (16, 49_152, 8, False)
+    assert tp.count_plan(tp.COUNT_NARROW_MAX, 5) == (16, 49_152, 1, False)
+    assert tp.count_plan(tp.COUNT_NARROW_MAX + 1, 367_987) == (32, 24_576, 15, True)
+
+
+@pytest.mark.parametrize("W,rows,bucket", [
+    (29_903 - 9, 524_800, False),              # sars2-genomes: u16, 11 slices, rows in L2
+    (tp.COUNT_NARROW_MAX, 524_800, False),     # the last u16 row
+    (tp.COUNT_NARROW_MAX + 1, 524_800, True),  # the first u32 row
+    (601_876, 524_800, True),                  # sars2-reads: 22 slices
+    (88_818_792, 8_390_656, True),             # mtb-reads: 342 slices
+    (88_818_792, 24_576, False),               # one slice: nothing to sort
+    (88_818_792, 24_576 * 8192, True),         # the scatter's most bins
+    (88_818_792, 24_576 * 8192 + 1, False),
+])
+def test_count_plan_buckets_long_rows_of_several_slices(W, rows, bucket):
+    """The bucketed plan where read sets take u32 counters and the rows span
+    2 to COUNT_BUCKET_SLICES slices."""
+    plan = tp.count_plan(W, rows)
+    assert plan.bucket is bucket
+    assert plan.slices == -(-rows // plan.cells)
 
 
 @pytest.mark.parametrize("W", [tp.COUNT_NARROW_MAX, tp.COUNT_NARROW_MAX + 2])
@@ -282,11 +382,12 @@ def test_emulated_row_range(monkeypatch, case):
     codes = read_like(12, B, L)
     whole, _ = assert_counts(tparams, jparams, codes)
     idx, n, n_known = emulate_lookup(tparams, codes, seed=3, row0=row0, n_rows=n_rows)
-    got, _ = emulate_slices(idx, n, n_rows, L - k + 1)
     want = np.zeros((B, n_rows), dtype=np.float32)
     cols = whole[:, row0: row0 + n_rows]
     want[:, : cols.shape[1]] = cols
-    assert np.array_equal(got, want)
+    for bucket in (False, True):
+        got, _ = emulate_slices(idx, n, n_rows, L - k + 1, bucket, seed=4)
+        assert np.array_equal(got, want)
     assert np.array_equal(n_known, whole.sum(axis=1))
     for fn in (tp.count_spectra_ref, tp.count_spectra):
         plain, known = fn(tparams, torch.from_numpy(codes), row0, n_rows, known=True)

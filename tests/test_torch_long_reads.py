@@ -19,7 +19,9 @@ positions are checked at their edges.
 
 On a card (``python3 -m pytest tests/test_torch_long_reads.py -q -m
 card``): the count kernel torch.equal to its plain version at 88.8M
-windows, a cell above 2^24 rounded once; the bag and the dense route
+windows, a cell above 2^24 rounded once, and in its bucketed plan at
+sars2-reads' 64 read sets of 601,885 bases, on the whole vocabulary and
+on a row range; the bag and the dense route
 within the bag's tolerances of the float64 chain there; the encode of a
 row past 1 GiB; the bytes wire and ``DeviceStep`` at a batch of 16 such
 read sets on both routes; and ``kpop-classify-torch`` serving them.  This file imports nothing of JAX.
@@ -148,7 +150,7 @@ def test_limits_of_the_int32_positions():
         tp.bag_row_groups(16, tp.BAG_MAX_WINDOWS + 1)
     # 32 read sets of 88.8M bases: 2.8G ints of count scratch, 3.2G of bag
     # workspace in a group of 12
-    assert tp.count_scratch_ints(32, TB_BASES, 12) > 2**31
+    assert tp.count_scratch_ints(32, TB_BASES, 12, 8_390_656) > 2**31
     assert tp.bag_workspace_ints(12, TB_BASES, 12, 8_390_656) > 2**31
     # the wrappers refuse before they allocate (stride-0 views hold 1 byte)
     one = torch.zeros((1, 1), dtype=torch.int8)
@@ -186,6 +188,7 @@ def test_wrappers_launch_tb_read_sets(monkeypatch):
     (name, args), = calls
     assert name == "kpop_count_spectra" and args[1:3] == (16, TB_BASES)
     assert args[8:10] == (0, V)  # the whole vocabulary: the unranged lookup
+    assert args[11] == 1 and tp.count_plan(TB_BASES - 11, V).slices == 342  # bucketed
     assert tp.project(params, spectra, known=known).shape == (16, d)
     calls.clear()
     assert tp.project_reads(params, codes).shape == (16, d)
@@ -257,6 +260,30 @@ def test_count_at_tb_read_sets_equals_plain_version(card, tb_params):
     assert int(known[2]) == W  # the normaliser stays exact
     assert float(got[2, row]) == float(np.float32(W)) != W  # the cell rounded once
     assert float(got[2].sum(dtype=torch.float64)) == float(np.float32(W))
+
+
+@pytest.mark.card
+def test_count_bucketed_at_sars2_reads_shape(card):
+    """64 read sets of 601,885 bases of joined 150 bp reads (the benchmark's
+    sars2-reads) at k = 10 over every canonical 10-mer (V = 524,800), one
+    of them one k-mer repeated: the count takes the bucketed plan (u32
+    counters, 22 slices) and is torch.equal to its plain version on the
+    whole vocabulary and on a row range with every read set's known
+    windows."""
+    lut, V = canonical_lut(10)
+    params = lut_params(lut, V, 8, 10, seed=10, device=card)
+    L = 601_885
+    g = torch.Generator(device=card).manual_seed(L)
+    codes = torch.randint(0, 4, (64, L), generator=g, device=card, dtype=torch.int8)
+    codes[:, 150::151] = -1
+    codes[5] = 0  # one k-mer in every window: all in one bucket
+    for row0, rows in ((0, V), (100_003, 200_000)):
+        plan = tp.count_plan(L - 10 + 1, rows)
+        assert plan.bucket and plan.bits == 32 and plan.slices == -(-rows // 24_576)
+        got, known = tp.count_spectra(params, codes, row0, rows, known=True)
+        want, want_known = tp.count_spectra_ref(params, codes, row0, rows, known=True)
+        assert torch.equal(got, want) and torch.equal(known, want_known)
+    assert int(known[5]) == L - 10 + 1
 
 
 @pytest.mark.card

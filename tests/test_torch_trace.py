@@ -119,8 +119,30 @@ def test_counters_count_the_batch(trained, counts, path, wire):
         "serve.batches": 1, "serve.queries": len(seqs), "serve.bases": sum(map(len, seqs)),
         "serve.upload_bytes": sent, "serve.route." + step.path: 1,
         "serve.windows": sum(len(s) - K + 1 for s in seqs), "serve.long_rows": 0,
-        "serve.count_bytes": count_bytes}
+        "serve.count_bytes": count_bytes, "serve.count_bucketed": 0}
     assert trace.counters()["launch.kpop_count_spectra"] == _build.LAUNCHES["kpop_count_spectra"]
+
+
+@pytest.mark.parametrize("path", ["dense", "bag"])
+def test_count_bucketed_counts_the_batches_of_the_bucketed_plan(trained, counts, monkeypatch,
+                                                                 path):
+    """``serve.count_bucketed`` counts a batch where the count takes the
+    bucketed plan (here forced at these sizes: u32 counters past 10
+    windows, slices of 16 cells), by the same ``count_plan`` the count
+    reads; never on the bag route."""
+    from kpop_tpu_torch.ops import pipeline as tp
+
+    _, params, seqs = trained
+    monkeypatch.setattr(tp, "COUNT_NARROW_MAX", 10)
+    monkeypatch.setattr(tp, "COUNT_SLICE_BYTES", 64)
+    L = max(map(len, seqs))
+    assert tp.count_plan(L - K + 1, params.n_vocab).bucket
+    step = DeviceStep(params, path)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            step.materialize(step.dispatch(seqs))
+    assert counts["serve.batches"] == 2
+    assert counts["serve.count_bucketed"] == (2 if path == "dense" else 0)
 
 
 def test_classify_profile_writes_trace_and_counters(trained, monkeypatch, counts):

@@ -214,7 +214,23 @@ def test_lockstep_lower_bound_on_kmer_limbs(content, k):
     np.testing.assert_array_equal(lockstep_lower_bound(vh, vl, qh, ql), want)
 
 
-# ---------------- the count's task split --------------------------------
+# ---------------- the count's task queue -------------------------------
+
+
+def run_queue(order, cost, blocks: int) -> list[list[int]]:
+    """The count kernel's queue over one wave of ``blocks`` blocks: each
+    block, as it finishes a task, takes the next of ``order``; ``cost[t]``
+    is task t's time.  Returns each block's tasks."""
+    import heapq
+
+    G = max(1, min(len(order), blocks))
+    free = [(0, g) for g in range(G)]
+    taken = [[] for _ in range(G)]
+    for t in order:
+        at, g = heapq.heappop(free)
+        taken[g].append(t)
+        heapq.heappush(free, (at + cost[t], g))
+    return taken
 
 
 @pytest.mark.parametrize("W,V,B,blocks", [
@@ -227,31 +243,85 @@ def test_lockstep_lower_bound_on_kmer_limbs(content, k):
     (10, 5, 3, 1),
 ])
 def test_count_tasks_cover_each_task_once(W, V, B, blocks):
-    bits, cells, slices = tp.count_plan(W, V)
+    """The read-all queue: slice-major, every task once; with equal tasks
+    one wave's blocks differ by at most one task."""
+    bits, cells, slices, _ = tp.count_plan(W, V)
     assert slices == -(-V // cells) and (slices - 1) * cells < V <= slices * cells
-    split = tp.count_tasks(slices, B, blocks)
-    assert len(split) == min(slices * B, blocks)
-    assert split[0].start == 0 and split[-1].stop == slices * B
-    assert all(a.stop == b.start for a, b in zip(split, split[1:]))
-    sizes = [len(r) for r in split]
+    order = tp.count_tasks(B, slices)
+    assert order == list(range(slices * B))
+    taken = run_queue(order, [1] * len(order), blocks)
+    assert len(taken) == min(slices * B, blocks)
+    assert sorted(t for ts in taken for t in ts) == order
+    sizes = [len(ts) for ts in taken]
     assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
     # the slices the tasks name lie inside the vocabulary
-    last = split[-1][-1]
-    assert last // B == slices - 1 and min(cells, V - (slices - 1) * cells) >= 1
+    assert order[-1] // B == slices - 1 and min(cells, V - (slices - 1) * cells) >= 1
 
 
 def test_count_tasks_fill_one_wave_at_phase_3():
     """Walkers of 13 read sets a slice would put 21 x 13 = 273 blocks on
-    264 resident slots at k = 16, 9 of them in a second wave; the split
+    264 resident slots at k = 16, 9 of them in a second wave; the queue
     takes one wave, at most ceil(2688 / 264) = 11 tasks a block."""
-    slices = tp.count_plan(30_193, 1_011_930)[2]
+    slices = tp.count_plan(30_193, 1_011_930).slices
     assert slices == 21
-    split = tp.count_tasks(slices, 128, 2 * 132)
-    assert len(split) == 264 and max(len(r) for r in split) == 11
+    taken = run_queue(tp.count_tasks(128, slices), [1] * 2688, 2 * 132)
+    assert len(taken) == 264 and max(len(ts) for ts in taken) == 11
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_count_tasks_queue_large_buckets_first(seed):
+    """The bucketed queue: every task once, those larger than twice their
+    read set's mean bucket first.  With a read set of one repeated k-mer
+    (all its windows in one bucket) and uneven buckets of GC-rich ranges,
+    the queue over one wave ends within one mean task of the balance, where
+    slice-major order leaves the large bucket to the wave's tail."""
+    rng = np.random.default_rng(seed)
+    B, S, blocks = 16, 342, 264
+    sizes = rng.poisson(rng.uniform(0.3, 3.0, S) * 250_000, size=(B, S))
+    sizes[3] = 0
+    sizes[3, S - 1] = 88_818_792  # one k-mer: one bucket of every window
+    order = tp.count_tasks(B, S, sizes.tolist())
+    assert sorted(order) == list(range(S * B))
+    n = sizes.sum(axis=1)
+    big = [t for t in order if sizes[t % B, t // B] * S > 2 * n[t % B]]
+    assert order[: len(big)] == big and S * B + 3 - B in big
+    cost = [sizes[t % B, t // B] + 24_576 for t in range(S * B)]  # reads plus the slice's stores
+    ends = [sum(cost[t] for t in ts) for ts in run_queue(order, cost, blocks)]
+    slice_major = [sum(cost[t] for t in ts)
+                   for ts in run_queue(tp.count_tasks(B, S), cost, blocks)]
+    assert max(ends) <= max(max(cost), sum(cost) / blocks + 2 * np.mean(cost))
+    assert max(ends) < max(slice_major)
 
 
 def test_count_scratch_holds_the_rows_and_counts():
+    """The scratch as csrc/count_spectra.cu lays it out: the kept and known
+    counts (the wrapper reads the known ones at 0 on the whole vocabulary,
+    at B on a range), the 8-byte queue, the bucket queue's head and tail;
+    bucketed, each bucket's end and start and the order of tasks; then
+    from a 16-byte boundary the kept rows and, bucketed, the bucketed
+    ones; count_workspace gives the plan argument and that scratch."""
     W = 30_208 - 16 + 1
     Wp = -(-W // tp.COUNT_RUN) * tp.COUNT_RUN
-    assert tp.count_scratch_ints(128, 30_208, 16) == 128 * Wp + 2 * 128
-    assert tp.count_scratch_ints(1, 16, 16) == tp.COUNT_RUN + 2
+    assert tp.count_scratch_ints(128, 30_208, 16, 1_011_930) == 128 * Wp + 2 * 128 + 4
+    assert tp.count_scratch_ints(1, 16, 16, 5) == tp.COUNT_RUN + 2 + 6
+    for B, L, k, rows in ((128, 30_208, 16, 1_011_930), (1, 16, 16, 5),
+                          (64, 601_885, 10, 524_800),  # sars2-reads: bucketed, 22 slices
+                          (16, 88_818_803, 12, 8_390_656),  # mtb-reads: 342 slices
+                          (3, 70_000, 5, 2 * 24_576 + 1)):
+        W = L - k + 1
+        Wp = -(-W // tp.COUNT_RUN) * tp.COUNT_RUN
+        plan = tp.count_plan(W, rows)
+        assert plan.bucket is (W > tp.COUNT_NARROW_MAX and plan.slices > 1)
+        BS = B * plan.slices if plan.bucket else 0
+        rows_at = 2 * B + 4 + 3 * BS  # the queue at 2 B ints: 8-byte aligned
+        rows_at += -rows_at % 4
+        want = rows_at + B * Wp * (2 if plan.bucket else 1)
+        assert tp.count_scratch_ints(B, L, k, rows) == want
+        # the plan argument and the scratch every caller passes, from one
+        # decision; the other plan, named, lays out its own
+        bucket, scratch = tp.count_workspace(B, L, k, rows, torch.device("meta"))
+        assert bucket == int(plan.bucket) and scratch.numel() == want
+        assert tp.count_scratch_ints(B, L, k, rows, not plan.bucket) == (
+            -(-(2 * B + 4 + 3 * B * plan.slices) // 4) * 4 + 2 * B * Wp if not plan.bucket
+            else -(-(2 * B + 4) // 4) * 4 + B * Wp)
+

@@ -141,6 +141,8 @@ def build_libs(dirs: dict) -> dict:
         for entry, sig in _build._SIGNATURES.items():
             if entry.startswith(("kpop_count_spectra", "kpop_embedding_bag")) and hasattr(lib, entry):
                 fn = getattr(lib, entry)
+                if name == "parent" and entry.startswith("kpop_count_spectra"):
+                    sig = sig[:-4] + sig[-3:]  # an earlier count takes no plan (bucket)
                 fn.argtypes, fn.restype = sig, ctypes.c_int
                 fns[entry] = fn
         libs[name] = fns
@@ -155,10 +157,11 @@ def launcher(fn, name: str, wire: tuple, params, codes):
     suffix, vocab = pl.vocab_args("probe", params, codes)
     head = (*wire, B, L, params.k, int(params.canonical), params.base, *vocab, V)
     if name.startswith("kpop_count_spectra"):
-        scratch = torch.empty(pl.count_scratch_ints(B, L, params.k), dtype=torch.int32,
-                              device=codes.device)
+        bucket, scratch = pl.count_workspace(B, L, params.k, V, codes.device)
         out = torch.empty((B, V), dtype=torch.float32, device=codes.device)
-        args = (*head, 0, V, 0, scratch.data_ptr(), out.data_ptr())
+        # row0, rows, known, the plan (a parent's takes none), scratch, out
+        plan = () if len(fn.argtypes) == len(head) + 6 else (bucket,)
+        args = (*head, 0, V, 0, *plan, scratch.data_ptr(), out.data_ptr())
         bufs = (scratch, out)
     else:
         from kpop_tpu_torch.ops.pairwise import _sm_count
