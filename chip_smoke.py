@@ -62,7 +62,8 @@ prints no result.  It imports nothing of JAX or of the JAX package
    the int8 entry point (the count also to its plain version, the bag
    within its tolerances of its plain version and float64), its time as
    called and its kernels' alone beside the int8 entry point's, and its
-   bound with the wire read at 3/8 of a byte a base; and the card's encode
+   bound with the wire read at 3/8 of a byte a base (logged; off the kernel
+   table, since no served path takes the wire); and the card's encode
    of raw bytes (``kpop_encode_bytes``) at the benchmark's read-set batch
    (64 x 601,885 bytes with dashes), staged as the serving step stages
    them, torch.equal to its plain version and to the host encoder's codes,
@@ -79,11 +80,9 @@ prints no result.  It imports nothing of JAX or of the JAX package
    >= 0.95 on each, every kernel launched (the encode too), each route's
    device time a batch, distances within 1e-4 of the host float64 chain,
    and the serving rate on each wire; the same read sets served again as
-   int8 codes encoded on the host (``DeviceStep(wire="codes")``) and on the
-   2-bit wire (``DeviceStep(wire="packed")``), distances equal to the bytes
-   wire's, the packed entry points launched and the int8 ones not, neither
-   twin launching the encode, and each batch's staging, host encode and
-   pack ms and its upload bytes and ms on each wire; the same table
+   int8 codes encoded on the host (``DeviceStep(wire="codes")``),
+   distances equal to the bytes wire's, the twin not launching the encode;
+   the same table
    fitted again on the streamed path with its budget forced
    (STREAM_BLOCKS row blocks, phi on the host and on the card), within
    tests/test_dd.py's bounds of ``fit_ca``, its sv within 1e-10 of the
@@ -92,9 +91,8 @@ prints no result.  It imports nothing of JAX or of the JAX package
    wire (the weighted table, not exactly f32), each held to ``fit_ca`` and
    to its own resident fit; then both routes
    served with a bf16 twister cast from the streamed fit's: accuracy >= 0.95
-   on each, distances within 2e-2 x max(1, |x|) of the f32 route, no f32
-   copy of the twister, and both routes again on the 2-bit wire, equal to
-   the bf16 bytes wire's;
+   on each, distances within 2e-2 x max(1, |x|) of the f32 route, and no
+   f32 copy of the twister;
 5. cli: the README quick start trained by ``kpop-twist-torch`` with its
    default backend (the device CA), then through ``bin/kpop-classify-torch``
    (also with ``--dtype bf16``, its lines within 2e-2 x max(1, |x|) of the
@@ -117,8 +115,8 @@ prints no result.  It imports nothing of JAX or of the JAX package
    trained on the card on the streamed path with the budget forced (phi on
    the host, then ``phi="device"``), parameters built around the device
    twister with the cuckoo hash, phase 4's held-out read sets served on
-   both routes, on the bytes wire, as host-encoded int8 codes and on the
-   2-bit wire (equal distances): top-1 accuracy >= 0.95 on each, the wide
+   both routes, on the bytes wire and as host-encoded int8 codes (equal
+   distances): top-1 accuracy >= 0.95 on each, the wide
    count, the wide bag and the tile launched (and the encode on the bytes
    wire), each route's device time a batch, and the
    first batch within 1e-4 of the host float64 chain through the fit with
@@ -129,8 +127,7 @@ prints no result.  It imports nothing of JAX or of the JAX package
    the first batch is also counted in the row ranges of 4 ranks (the
    ``count_spectra_rows`` row), as phase 3's k = 10 batch is: each range
    torch.equal to its plain version and to the whole kernel's columns, and
-   the first range on the 2-bit wire (``count_spectra_rows_packed``); the
-   bf16 bag route is also served on the 2-bit wire;
+   the first range on the 2-bit wire (``count_spectra_rows_packed``);
 8. sharded: phase 7's k = 16 table trained rank-sharded by 4 gloo ranks on
    the one card (``chip_smoke.py --sharded-rank``, the kernels built by this
    process first; NCCL refuses two ranks on one card), its sv within 1e-10
@@ -143,11 +140,8 @@ prints no result.  It imports nothing of JAX or of the JAX package
    the launches of the main path summed over the ranks (the encode among
    them: the step takes the bytes wire), the rate, and a batch split into
    the rank's rows staged and uploaded, the card's encode, count, product,
-   all-reduce (gloo: through the host) and distances; the f32
-   ``--kmer-parallel`` layout served again on the 2-bit wire, its
-   distances equal to the bytes wire's on every rank (path
-   ``sharded_packed``); then the same at world size 1 over NCCL, whose
-   all-reduce runs on the card.
+   all-reduce (gloo: through the host) and distances; then the same at
+   world size 1 over NCCL, whose all-reduce runs on the card.
 
 The kernel table is printed as one JSON line, then the card's name and
 power limit, and last the result line
@@ -221,23 +215,11 @@ LARGE_K_CODES_KERNELS = ("kpop_count_spectra_wide", "kpop_embedding_bag_wide",
                          "kpop_pairwise_dist")
 LARGE_K_KERNELS = LARGE_K_CODES_KERNELS + ("kpop_encode_bytes",)
 # the 2-bit read wire: what each packed entry point replaces (the TPU's
-# unpack pass, then the count or the bag), and the kernels each packed main
-# path must launch
+# unpack pass, then the count or the bag)
 PACKED_COUNT_REPLACES = "kpop_tpu/ops/encode.py:213 with kpop_tpu/ops/pipeline.py:179"
 PACKED_BAG_REPLACES = "kpop_tpu/ops/encode.py:213 with kpop_tpu/ops/pipeline.py:200"
 PACKED_WIDE_REPLACES = PACKED_COUNT_REPLACES + " and :165-176"
 PACKED_WIDE_BAG_REPLACES = PACKED_BAG_REPLACES + " and :165-176"
-SLICE_PACKED_KERNELS = ("kpop_count_spectra_packed", "kpop_embedding_bag_packed",
-                        "kpop_pairwise_dist")
-LARGE_K_PACKED_KERNELS = ("kpop_count_spectra_wide_packed", "kpop_embedding_bag_wide_packed",
-                          "kpop_pairwise_dist")
-# what the default wire's twins must not launch: the packed wire none of the
-# int8 count and bag entry points, and neither twin the card's encode
-NOT_ON_WIRE = {
-    "packed": ("kpop_count_spectra", "kpop_count_spectra_wide", "kpop_embedding_bag",
-               "kpop_embedding_bag_wide", "kpop_encode_bytes"),
-    "codes": ("kpop_encode_bytes",),
-}
 # the device CA against the host float64 fit_ca: tests/test_dd.py:81-84
 CA_BOUNDS = dict(sv=1e-8, inertia=1e-8, coords=1e-6, twister=1e-5)
 # the streamed CA fit: the budget forced so that the table streams in
@@ -1272,7 +1254,7 @@ def bf16_regime_rows(dev, rng, params, d: int) -> dict:
         "slice_bf16", regime="gather")
     rows["embedding_bag_packed_bf16_gather"] = packed_bag_row(
         bf16_of(params), short, params.vocab_lut, f"[{BATCH}, 390], k={K}, twister "
-        f"{list(params.twister.shape)}", PACKED_BAG_REPLACES + " (:237-240)", "slice_bf16_packed",
+        f"{list(params.twister.shape)}", PACKED_BAG_REPLACES + " (:237-240)",
         regime="gather")
     genome = rng.integers(0, 4, size=20_000, dtype=np.int8)
     starts = rng.integers(0, len(genome) - 150, size=(BATCH, 30_208 // 151 + 1))
@@ -1289,7 +1271,7 @@ def bf16_regime_rows(dev, rng, params, d: int) -> dict:
         "kpop_embedding_bag_wide", "large_k_bf16", regime="staged")
     rows["embedding_bag_wide_packed_bf16_staged"] = packed_bag_row(
         bf16_of(wide), dense, wide.cuckoo, f"[{BATCH}, 30208] of one 20 kb genome, k={LARGE_K}, "
-        "V=20000, cuckoo", PACKED_WIDE_BAG_REPLACES, "large_k_bf16_packed", regime="staged")
+        "V=20000, cuckoo", PACKED_WIDE_BAG_REPLACES, regime="staged")
     del short, dense, wide, tw
     torch.cuda.empty_cache()
     return rows
@@ -1363,7 +1345,7 @@ def wide_rows(dev, rng, codes, d: int) -> dict:
                              .split("(")[0][:32], v)
                 for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1]))))
         if i == 1:  # the sorted limbs on the 2-bit wire, beside the cuckoo row
-            limbs = packed_count_row(params, c, table, what, PACKED_WIDE_REPLACES, "large_k_packed")
+            limbs = packed_count_row(params, c, table, what, PACKED_WIDE_REPLACES)
             rows["count_spectra_wide_packed"]["sorted_limbs"] = {
                 k: limbs[k] for k in ("ms", "alone_ms", "int8_ms", "int8_alone_ms", "bound_ms")}
         if i:
@@ -1410,11 +1392,11 @@ def wide_rows(dev, rng, codes, d: int) -> dict:
         # the same batch on the 2-bit wire: the wide count, the wide bag on
         # f32 and bf16 rows (the gather regime)
         rows["count_spectra_wide_packed"] = packed_count_row(
-            params, c, table, what, PACKED_WIDE_REPLACES, "large_k_packed")
+            params, c, table, what, PACKED_WIDE_REPLACES)
         rows["embedding_bag_wide_packed"] = packed_bag_row(
-            params, c, table, what, PACKED_WIDE_BAG_REPLACES, "large_k_packed", regime="gather")
+            params, c, table, what, PACKED_WIDE_BAG_REPLACES, regime="gather")
         rows["embedding_bag_wide_packed_bf16"] = packed_bag_row(
-            bf16_of(params), c, table, what, PACKED_WIDE_BAG_REPLACES, "large_k_bf16_packed",
+            bf16_of(params), c, table, what, PACKED_WIDE_BAG_REPLACES,
             regime="gather")
     del blocks, twister
     torch.cuda.empty_cache()
@@ -1494,14 +1476,13 @@ def phase_kernels(dev, B: int, L: int, V: int, d: int, C: int, big: int):
     # the same batch on the 2-bit wire: the LUT count, and the bag on f32
     # and on bf16 rows (the staged regime)
     rows["count_spectra_packed"] = packed_count_row(
-        params, codes, params.vocab_lut, f"[{B}, {L}], k={K}, V={V}", PACKED_COUNT_REPLACES,
-        "slice_packed")
+        params, codes, params.vocab_lut, f"[{B}, {L}], k={K}, V={V}", PACKED_COUNT_REPLACES)
     rows["embedding_bag_packed"] = packed_bag_row(
         params, codes, params.vocab_lut, f"[{B}, {L}], k={K}, twister [{V}, {d}]",
-        PACKED_BAG_REPLACES, "slice_packed", regime="staged")
+        PACKED_BAG_REPLACES, regime="staged")
     rows["embedding_bag_packed_bf16"] = packed_bag_row(
         bf16_of(params), codes, params.vocab_lut, f"[{B}, {L}], k={K}, twister [{V}, {d}]",
-        PACKED_BAG_REPLACES + " (:237-240)", "slice_bf16_packed", regime="staged")
+        PACKED_BAG_REPLACES + " (:237-240)", regime="staged")
     rows.update(wide_rows(dev, np.random.default_rng(7), codes, d))
     rows.update(bf16_regime_rows(dev, np.random.default_rng(9), params, d))
 
@@ -1642,8 +1623,7 @@ def encode_bytes_row(dev) -> dict:
 
 def packed_reads(codes):
     """int8 codes on the card -> the same read sets on the 2-bit wire on
-    the card, packed on the host as ``DeviceStep(wire="packed")`` packs
-    them."""
+    the card, packed on the host (``pack_reads_2bit``)."""
     import torch
 
     from kpop_tpu_torch.ops.encode import PackedReads, pack_reads_2bit
@@ -1659,7 +1639,7 @@ def wire_nbytes(reads) -> int:
     return reads.packed.nbytes + reads.valid.nbytes
 
 
-def packed_count_row(params, codes, table, what: str, replaces: str, path: str,
+def packed_count_row(params, codes, table, what: str, replaces: str,
                      rows_range: tuple | None = None) -> dict:
     """The count on the 2-bit wire (``kpop_count_spectra[_wide]_packed``) on
     the read sets of ``codes``: torch.equal to its plain version (the wire
@@ -1668,7 +1648,8 @@ def packed_count_row(params, codes, table, what: str, replaces: str, path: str,
     each read set's known windows); its time as called and its kernels'
     alone, each beside the int8 entry point's in the same call, and its
     bound with the wire read at 3/8 of a byte a base.  No library call
-    (as for the count)."""
+    (as for the count), and off the kernel table: no served path takes the
+    wire."""
     import torch
 
     from kpop_tpu_torch.ops import pipeline as pl
@@ -1715,11 +1696,11 @@ def packed_count_row(params, codes, table, what: str, replaces: str, path: str,
         shape="%s, the 2-bit wire%s" % (what, "" if rows_range is None else
                                         f", rows [{row0}, {row0 + rows}) of {V}"),
         source="kpop_tpu_torch/csrc/count_spectra.cu", replaces=replaces,
-        launch=name + "_packed", path=path,
+        launch=name + "_packed", path=None,
     )
 
 
-def packed_bag_row(params, codes, table, what: str, replaces: str, path: str,
+def packed_bag_row(params, codes, table, what: str, replaces: str,
                    regime: str | None = None) -> dict:
     """The bag on the 2-bit wire (``kpop_embedding_bag[_wide]_packed``) on
     the read sets of ``codes``: torch.equal to the int8 entry point on the
@@ -1728,7 +1709,8 @@ def packed_bag_row(params, codes, table, what: str, replaces: str, path: str,
     regime ``regime`` where given; its time as called and its kernels'
     alone, each beside the int8 entry point's in the same call, and its
     bound with the wire read at 3/8 of a byte a base and each hit row once.
-    No library call (as for the count)."""
+    No library call (as for the count), and off the kernel table: no served
+    path takes the wire."""
     import torch
 
     from kpop_tpu_torch.ops import pipeline as pl
@@ -1785,67 +1767,24 @@ def packed_bag_row(params, codes, table, what: str, replaces: str, path: str,
         int8_alone_ms=int8_alone, regime=taken,
         shape="%s, the 2-bit wire%s" % (what, ", bf16 twister" if bf16 else ""),
         source="kpop_tpu_torch/csrc/embedding_bag.cu", replaces=replaces,
-        launch=name + "_packed", path=path,
+        launch=name + "_packed", path=None,
     )
     del got, want
     torch.cuda.empty_cache()
     return row
 
 
-def wire_costs(label: str, dev, batches) -> None:
-    """What each wire costs a batch, on the host and on the way to the
-    card: the bytes wire's staging ms (``ByteRing.reserve`` and ``fill``),
-    host encode ms, host pack ms (``pack_reads_2bit``), the bytes of each
-    wire and the median ms of its upload from pinned memory (CUDA events
-    around the copy), logged for each batch, with their medians."""
-    import torch
-
-    from kpop_tpu_torch.ops.encode import ByteRing, encode_reads_host, pack_reads_2bit
-
-    ring = ByteRing(pinned=True)
-    per = []
-    for _truth, seqs in batches:
-        t0 = time.perf_counter()
-        staged = ring.reserve(seqs)
-        ring.fill(staged)
-        t1 = time.perf_counter()
-        codes = encode_reads_host(seqs)
-        t2 = time.perf_counter()
-        packed, valid = pack_reads_2bit(codes)
-        t3 = time.perf_counter()
-        host_bytes = staged.buffer
-        host_codes = torch.from_numpy(codes).pin_memory()
-        host_wire = torch.from_numpy(np.concatenate([packed.ravel(), valid.ravel()])).pin_memory()
-        per.append(dict(
-            stage_ms=(t1 - t0) * 1e3, encode_ms=(t2 - t1) * 1e3, pack_ms=(t3 - t2) * 1e3,
-            bytes_bytes=host_bytes.numel(), codes_bytes=codes.nbytes,
-            wire_bytes=host_wire.numel(),
-            bytes_upload_ms=time_ms(lambda: host_bytes.to(dev, non_blocking=True), reps=5),
-            codes_upload_ms=time_ms(lambda: host_codes.to(dev, non_blocking=True), reps=5),
-            wire_upload_ms=time_ms(lambda: host_wire.to(dev, non_blocking=True), reps=5)))
-    for i, b in enumerate(per):
-        log("%s: batch %d: bytes wire staging %.4f ms, host encode %.4f ms, pack %.4f ms; upload "
-            "%d B of raw bytes %.4f ms, %d B of codes %.4f ms, %d B of the 2-bit wire %.4f ms"
-            % (label, i, b["stage_ms"], b["encode_ms"], b["pack_ms"], b["bytes_bytes"],
-               b["bytes_upload_ms"], b["codes_bytes"], b["codes_upload_ms"], b["wire_bytes"],
-               b["wire_upload_ms"]))
-    med = {k: float(np.median([b[k] for b in per])) for k in per[0]}
-    log("%s: medians a batch: %s" % (label, json.dumps(med)))
-
-
-def twin_serving(label: str, wire: str, params, batches, dmats, kernels, paths) -> dict:
-    """The read sets served on ``paths`` through ``DeviceStep(wire=wire)``,
-    a twin of the default bytes wire: ``"codes"`` (int8 codes encoded on
-    the host) or ``"packed"`` (the 2-bit wire).  The main path of
-    serve_routes (every count set to 0 just before, read just after; each
-    of ``kernels`` launched; accuracy >= ACCURACY_GATE), none of
-    ``NOT_ON_WIRE[wire]`` launched, and each route's distances equal to
+def twin_serving(label: str, params, batches, dmats, kernels, paths) -> dict:
+    """The read sets served on ``paths`` through ``DeviceStep(wire="codes")``
+    (int8 codes encoded on the host), a twin of the default bytes wire: the
+    main path of serve_routes (every count set to 0 just before, read just
+    after; each of ``kernels`` launched; accuracy >= ACCURACY_GATE), the
+    card's encode not launched, and each route's distances equal to
     ``dmats``, the bytes wire's."""
     got, launches, accuracy, busy, launch_ms = serve_routes(label, params, batches, kernels, paths,
-                                                            wire=wire)
-    stray = [n for n in NOT_ON_WIRE[wire] if launches[n]]
-    if stray:
-        raise AssertionError(f"{label}: the {wire} wire launched {stray}")
+                                                            wire="codes")
+    if launches["kpop_encode_bytes"]:
+        raise AssertionError(f"{label}: the codes wire launched kpop_encode_bytes")
     for path in paths:
         if not np.array_equal(np.concatenate(got[path]), np.concatenate(dmats[path])):
             raise AssertionError(f"{label}, {path}: distances differ from the bytes wire's")
@@ -2319,21 +2258,15 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     width = max(len(s) for _, seqs in batches for s in seqs)
     dmats, launches, accuracy, busy, launch_ms = serve_routes("slice", params, batches,
                                                               SLICE_KERNELS)
-    # the same read sets as int8 codes encoded on the host and on the 2-bit
-    # wire, and what each wire costs a batch
-    codes_twin = twin_serving("slice codes", "codes", params, batches, dmats,
-                              SLICE_CODES_KERNELS, ("dense", "bag"))
-    packed = twin_serving("slice packed", "packed", params, batches, dmats, SLICE_PACKED_KERNELS,
-                          ("dense", "bag"))
-    log("slice: device ms a batch by route, bytes wire %s, int8 wire %s, 2-bit wire %s"
-        % (json.dumps(busy), json.dumps(codes_twin["busy"]), json.dumps(packed["busy"])))
-    wire_costs("slice wires", dev, batches)
+    # the same read sets as int8 codes encoded on the host
+    codes_twin = twin_serving("slice codes", params, batches, dmats, SLICE_CODES_KERNELS,
+                              ("dense", "bag"))
+    log("slice: device ms a batch by route, bytes wire %s, int8 wire %s"
+        % (json.dumps(busy), json.dumps(codes_twin["busy"])))
     # bf16 parameters around the streamed fit's device twister, both routes
     params16 = params_around_twister(space, vocab_hex, streamed.pop("phi_dev"), streamed["inertia"],
                                      streamed["coords"], dtype=torch.bfloat16)
     bf16 = bf16_serving("slice bf16", params16, batches, dmats, SLICE_KERNELS, ("dense", "bag"))
-    bf16_packed = twin_serving("slice bf16 packed", "packed", params16, batches, bf16["dmats"],
-                               SLICE_PACKED_KERNELS, ("dense", "bag"))
     del params16
     log_accumulate("slice", launch_ms["bag"], bf16["launch_ms"]["bag"])
 
@@ -2350,23 +2283,21 @@ def phase_slice(dev, n_classes: int, genome_len: int, batch: int, card: str):
     # batch in flight, route picked as kpop-classify's default 'auto' does
     auto = pick_path(batch, width - K + 1, params.n_vocab, d)
     rates = {}
-    order = ("bytes", "codes", "packed", "packed", "codes", "bytes")
+    order = ("bytes", "codes", "codes", "bytes")
     for wire in order:
         t0 = time.perf_counter()
         serve(DeviceStep(params, "auto", wire=wire), batches)
         rates.setdefault(wire, []).append(n_seqs / (time.perf_counter() - t0))
     log("slice: serving seqs/s over %d read sets per pass (route %s; host staging + upload + "
-        "device step + download), in the order %s: bytes wire %s, int8 wire %s, 2-bit wire %s, "
-        "on %s"
+        "device step + download), in the order %s: bytes wire %s, int8 wire %s, on %s"
         % (n_seqs, auto, ", ".join(order), [round(r, 1) for r in rates["bytes"]],
-           [round(r, 1) for r in rates["codes"]], [round(r, 1) for r in rates["packed"]], card))
+           [round(r, 1) for r in rates["codes"]], card))
     return dict(launches=launches, train_launches=train_launches, accuracy=accuracy,
                 host_err=host_err, seqs_per_s=rates, vocab=params.n_vocab, d=d,
                 train_s=train_s, train_phases=phases, ca_err=ca_err, table=table,
                 genomes=genomes, batches=batches, stream_launches=streamed["launches"],
                 stream_rows=streamed["device_stream"]["block_rows"],
-                bf16_launches=bf16["launches"], packed_launches=packed["launches"],
-                bf16_packed_launches=bf16_packed["launches"])
+                bf16_launches=bf16["launches"])
 
 
 # ---------------- phase 5: the quick start through the CLI ---------------
@@ -2745,12 +2676,10 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
            time.perf_counter() - t0))
     dmats, launches, accuracy, busy, launch_ms = serve_routes("large k", params, batches,
                                                               LARGE_K_KERNELS)
-    codes_twin = twin_serving("large k codes", "codes", params, batches, dmats,
-                              LARGE_K_CODES_KERNELS, ("dense", "bag"))
-    packed = twin_serving("large k packed", "packed", params, batches, dmats,
-                          LARGE_K_PACKED_KERNELS, ("dense", "bag"))
-    log("large k: device ms a batch by route, bytes wire %s, int8 wire %s, 2-bit wire %s"
-        % (json.dumps(busy), json.dumps(codes_twin["busy"]), json.dumps(packed["busy"])))
+    codes_twin = twin_serving("large k codes", params, batches, dmats, LARGE_K_CODES_KERNELS,
+                              ("dense", "bag"))
+    log("large k: device ms a batch by route, bytes wire %s, int8 wire %s"
+        % (json.dumps(busy), json.dumps(codes_twin["busy"])))
     log("large k: on %s" % card)
     # phase 8's count: the first batch in the row ranges of 4 ranks
     codes = encode_reads_host(batches[0][1])
@@ -2758,19 +2687,17 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
                                    constant_values=-1), device=dev)
     rows_row = count_rows_check(params, codes, f"phase 7's first batch {list(codes.shape)}, "
                                 f"k={LARGE_K}, V={params.n_vocab}, cuckoo", timed=True)
-    # the same range on the 2-bit wire (phase 8's packed serving)
+    # the same range on the 2-bit wire
     rows_packed_row = packed_count_row(
         params, codes, params.cuckoo, f"phase 7's first batch {list(codes.shape)}, k={LARGE_K}, "
         f"V={params.n_vocab}, cuckoo", "kpop_tpu/ops/encode.py:213 with "
-        "kpop_tpu/parallel/serving.py:113", "sharded_packed",
+        "kpop_tpu/parallel/serving.py:113",
         rows_range=(0, -(-params.n_vocab // COUNT_RANGES)))
     del params, codes
     torch.cuda.empty_cache()
     bf16 = bf16_serving("large k bf16", params16, batches, dmats,
                         ("kpop_embedding_bag_wide", "kpop_pairwise_dist", "kpop_encode_bytes"),
                         ("bag",))
-    bf16_packed = twin_serving("large k bf16 packed", "packed", params16, batches, bf16["dmats"],
-                               ("kpop_embedding_bag_wide_packed", "kpop_pairwise_dist"), ("bag",))
     del params16
     log_accumulate("large k", launch_ms["bag"], bf16["launch_ms"]["bag"])
 
@@ -2786,8 +2713,7 @@ def phase_large_k(dev, genomes: dict, batches, card: str) -> dict:
                 vocab=len(vocab_hex), train_s=train_s, bf16_launches=bf16["launches"],
                 stream_launches=fit["launches"], stream_rows=fit["device_stream"]["block_rows"],
                 rows_row=rows_row, table=table, vocab_hex=vocab_hex, sv=fit["sv"], want=want,
-                rows_packed_row=rows_packed_row, packed_launches=packed["launches"],
-                bf16_packed_launches=bf16_packed["launches"])
+                rows_packed_row=rows_packed_row)
 
 
 # ---------------- phase 8: sharded over ranks ----------------------------
@@ -2983,24 +2909,6 @@ def sharded_rank(rank: int, world: int, port: int, workdir: str, backend: str) -
                                  f"above its shard, tables and a batch: {res['peak_bound']} B")
         if kp_opt:
             res["stages_ms"] = stage_ms(step, batches)
-        if kp_opt and dtype_name == "f32":
-            # the same layout on the 2-bit wire: the count's packed entry
-            # point over the rank's rows, the distances the bytes wire's
-            pstep = DeviceStep(params, mesh=mesh, dmat=sharded_dmat_fn(mesh, v), wire="packed")
-            serve(pstep, batches[:1])  # warm-up
-            for name in _build.LAUNCHES:
-                _build.LAUNCHES[name] = 0
-            t0 = time.perf_counter()
-            pblocks = serve(pstep, batches)
-            wall = time.perf_counter() - t0
-            res["packed"] = dict(launches=dict(_build.LAUNCHES), seqs_per_s=n_seqs / wall,
-                                 equal=bool(np.array_equal(np.concatenate(pblocks), dmat)))
-            pl_ = res["packed"]["launches"]
-            if not (res["packed"]["equal"] and pl_["kpop_count_spectra_wide_packed"]
-                    and not pl_["kpop_count_spectra_wide"] and not pl_["kpop_encode_bytes"]):
-                raise AssertionError(f"rank {rank}: the packed wire's distances equal the int8 "
-                                     f"wire's: {res['packed']['equal']}; launches {pl_}")
-            del pstep
         out["serving"].append(res)
         del params, step
         torch.cuda.empty_cache()
@@ -3141,15 +3049,6 @@ def phase_sharded(lk: dict, batches, card: str) -> dict:
                        max(peaks) / res["twister_bytes"], res["peak_bound"],
                        json.dumps(summed_launches(r["serving"][i]["launches"] for r in ranks)),
                        card))
-                if "packed" in res:
-                    log("sharded %s x%d, %s %s on the 2-bit wire: distances equal to the bytes "
-                        "wire's on every rank %s; %.1f read sets/s on rank 0; main path "
-                        "launches summed over the ranks %s"
-                        % (backend, world, res["option"], res["dtype"],
-                           all(r["serving"][i]["packed"]["equal"] for r in ranks),
-                           res["packed"]["seqs_per_s"],
-                           json.dumps(summed_launches(r["serving"][i]["packed"]["launches"]
-                                                      for r in ranks))))
                 if "stages_ms" in res:
                     log("sharded %s x%d, %s %s: a batch of %d on rank 0, ms by step (median; the "
                         "all-reduce %s): %s"
@@ -3165,8 +3064,6 @@ def phase_sharded(lk: dict, batches, card: str) -> dict:
             result[backend] = ranks
         main = result["gloo"]
         return dict(launches=summed_launches(r["serving"][0]["launches"] for r in main),
-                    packed_launches=summed_launches(r["serving"][0]["packed"]["launches"]
-                                                    for r in main),
                     ranks=result)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3198,7 +3095,7 @@ def main() -> int:
     _build.lib()
     log("build: %s in %.1f s (nvcc %.1f s; %s)" % (
         _build.library_path().name, time.perf_counter() - t0,
-        _build.BUILD_SECONDS, " ".join(_build.NVCC_FLAGS)))
+        _build.BUILD_SECONDS, " ".join(_build.nvcc_flags())))
     # 3. kernels
     rows = phase_kernels(dev, B=BATCH, L=30208, V=367_987, d=511, C=N_CLASSES, big=4096)
     # 4. slice
@@ -3235,11 +3132,7 @@ def main() -> int:
     launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"],
                 "large_k": lk["launches"], "train_streamed": sl["stream_launches"],
                 "slice_bf16": sl["bf16_launches"], "large_k_bf16": lk["bf16_launches"],
-                "sharded": sh["launches"], "slice_packed": sl["packed_launches"],
-                "slice_bf16_packed": sl["bf16_packed_launches"],
-                "large_k_packed": lk["packed_launches"],
-                "large_k_bf16_packed": lk["bf16_packed_launches"],
-                "sharded_packed": sh["packed_launches"]}
+                "sharded": sh["launches"]}
     def entry_launches(r) -> dict:
         names = (r["launch"],) if isinstance(r["launch"], str) else r["launch"]
         return {n: launches[r["path"]][n] for n in names}

@@ -3,8 +3,11 @@
 Each ``csrc/*.cu`` file compiles to an object by its own ``nvcc``, all
 started together, and the objects link into one shared library with a plain
 C interface, loaded with :mod:`ctypes` (no PyTorch headers, so the build
-takes seconds).  The library lands in ``kpop_tpu_torch/_build/`` under a
-name keyed by a hash of the sources and flags, and is built on first use.
+takes seconds).  Each layout constant of the kernels' scratch
+(:data:`LAYOUT`) is written once, in ``ops/pipeline.py``, and compiled in
+as a ``-DKPOP_<NAME>`` define (:func:`nvcc_flags`).  The library lands in
+``kpop_tpu_torch/_build/`` under a name keyed by a hash of the sources and
+flags, defines included, and is built on first use.
 A failed build raises with ``nvcc``'s output; nothing falls back.
 
 Every C entry point takes its tensors as raw device pointers plus PyTorch's
@@ -34,6 +37,13 @@ _OUT = _DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+#: the layout constants of ops/pipeline.py that csrc/ compiles with, each as
+#: -DKPOP_<NAME>: the wrappers size the kernels' scratch and plan the count
+#: from the same values
+LAYOUT = (
+    "COUNT_RUN", "COUNT_SLICE_BYTES", "COUNT_NARROW_MAX", "COUNT_BUCKET_SLICES",
+    "BAG_COLS", "BAG_GROUP", "BAG_TILE_ROWS", "BAG_COUNTERS", "BAG_GATHER_TILE_ENTRIES",
 )
 
 _P = ctypes.c_void_p
@@ -110,9 +120,17 @@ def _sources() -> list[Path]:
     return sorted(_CSRC.glob("*.cu"))
 
 
+def nvcc_flags() -> tuple[str, ...]:
+    """:data:`NVCC_FLAGS` and a ``-DKPOP_<NAME>=<value>`` define for each
+    of :data:`LAYOUT`, at its value in ``ops/pipeline.py`` when called."""
+    from .ops import pipeline  # imported here: pipeline imports this module
+
+    return NVCC_FLAGS + tuple(f"-DKPOP_{name}={int(getattr(pipeline, name))}" for name in LAYOUT)
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for src in sorted(_CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -143,8 +161,8 @@ def _build(target: Path) -> None:
     with tempfile.TemporaryDirectory(dir=_OUT) as tmpdir:
         sources = _sources()
         objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources]
-        nvcc = nvcc_path()
-        _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+        nvcc, flags = nvcc_path(), nvcc_flags()
+        _run([[nvcc, *flags, "-c", str(src), "-o", obj]
               for src, obj in zip(sources, objs)])
         tmp = os.path.join(tmpdir, target.name)
         _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])

@@ -54,14 +54,7 @@ from .. import __version__, trace
 from ..config import device
 from ..parallel import distributed
 from ..parallel.mesh import Layout, all_gather_rows, make_mesh
-from ..ops.encode import (
-    ByteRing,
-    PackedReads,
-    encode_bytes,
-    encode_reads_host,
-    pack_reads_2bit,
-    packed_strides,
-)
+from ..ops.encode import ByteRing, encode_bytes, encode_reads_host
 from ..ops.pipeline import (
     ClassifierParams,
     build_classifier_params,
@@ -139,10 +132,9 @@ def pick_path(B: int, W: int, V: int, d: int) -> str:
 
 
 def dmat_step(params: ClassifierParams, base_codes, path: str):
-    """``[B, L]`` base codes (or :class:`~..ops.encode.PackedReads`) ->
-    ``[B, C]`` distances to the classes, through the dense route (count,
-    then the twister product over each read set's integer count of known
-    windows) or the bag."""
+    """``[B, L]`` base codes -> ``[B, C]`` distances to the classes,
+    through the dense route (count, then the twister product over each read
+    set's integer count of known windows) or the bag."""
     check_whole_twister("dmat_step", params)
     if path == "bag":
         twisted = project_reads(params, base_codes)
@@ -180,14 +172,9 @@ class DeviceStep:
       ``csrc/encode_bytes.cu``);
     - ``"codes"`` (the default on the CPU, as the JAX tool serves): one
       int8 code a base, encoded on the host
-      (:func:`~..ops.encode.encode_reads_host`);
-    - ``"packed"``: DNA on the 2-bit wire
-      (:func:`~..ops.encode.pack_reads_2bit`, 3/8 of a byte a base),
-      encoded and packed on the host and staged as one pinned buffer, the
-      packed bytes then the validity bytes, uploaded by one copy; the
-      kernels read it as it is (:class:`~..ops.encode.PackedReads`).
+      (:func:`~..ops.encode.encode_reads_host`).
 
-    Every wire gives the same distances.
+    Both wires give the same distances.
     """
 
     def __init__(self, params: ClassifierParams, path: str = "auto", mesh: Layout | None = None,
@@ -195,10 +182,8 @@ class DeviceStep:
         self.device = params.twister.device
         if wire is None:  # on the CPU the plain encode is slower than the native host encoder
             wire = "bytes" if self.device.type == "cuda" else "codes"
-        if wire not in ("bytes", "codes", "packed"):
-            raise ValueError(f"wire must be 'bytes', 'codes' or 'packed', not {wire!r}")
-        if wire == "packed" and params.base != 4:
-            raise ValueError(f"the 2-bit wire holds DNA, not base {params.base}")
+        if wire not in ("bytes", "codes"):
+            raise ValueError(f"wire must be 'bytes' or 'codes', not {wire!r}")
         self.params = params
         self.path = path
         self.mesh = Layout(dp=1, kp=1) if mesh is None else mesh
@@ -224,8 +209,6 @@ class DeviceStep:
                         self._ring.uploaded()
             else:
                 reads = sent
-            if wire == "packed":
-                reads = self._packed_reads(reads, *shape)
             with trace.span("serve.launch"):
                 if wire == "bytes":
                     reads = encode_bytes(*staged.split(reads), width, self._lint)
@@ -252,10 +235,9 @@ class DeviceStep:
         rank's windows (``serve.windows``, each sequence's length less k -
         1), its read sets of 2^24 windows or more (``serve.long_rows``),
         and the least bytes of the count (``serve.count_bytes``): the
-        ``rows`` rows of codes it reads at their stride (``length`` bases,
-        or the 2-bit wire's bytes a row) and the ``[rows, V]`` f32 spectra
-        it writes (a shard's rows on a k-mer-sharded rank); 0 on the bag
-        route.  ``serve.count_bucketed`` counts the batch where the count
+        ``rows`` rows of ``length`` codes it reads and the ``[rows, V]`` f32
+        spectra it writes (a shard's rows on a k-mer-sharded rank); 0 on the
+        bag route.  ``serve.count_bucketed`` counts the batch where the count
         takes its bucketed plan (:func:`count_plan`)."""
         if not trace.recording():
             return
@@ -264,10 +246,9 @@ class DeviceStep:
         windows = [max(0, len(s) - k + 1) for s in seqs[b0:b1]]
         trace.count("serve.windows", sum(windows))
         trace.count("serve.long_rows", sum(w >= 1 << 24 for w in windows))
-        stride = sum(packed_strides(length)) if self.wire == "packed" else length
         counted = self.dmat is not None or self.path != "bag"
         V = self.params.twister.shape[0]
-        trace.count("serve.count_bytes", rows * (stride + 4 * V) if counted else 0)
+        trace.count("serve.count_bytes", rows * (length + 4 * V) if counted else 0)
         trace.count("serve.count_bucketed",
                     int(counted and count_plan(length - k + 1, V).bucket))
 
@@ -292,8 +273,8 @@ class DeviceStep:
         return staged, width
 
     def _stage_codes(self, seqs):
-        """This rank's rows of the batch encoded on the host (packed on the
-        2-bit wire), pinned where the card takes them, and their shape."""
+        """This rank's rows of the batch encoded on the host, pinned where
+        the card takes them, and their shape."""
         p, mesh = self.params, self.mesh
         with trace.span("serve.encode"):
             codes = encode_reads_host(seqs, protein=p.base != 4)
@@ -304,33 +285,10 @@ class DeviceStep:
             b0, b1 = mesh.rows(codes.shape[0], "data")
             codes = np.ascontiguousarray(codes[b0:b1])
             self._pick_path(*codes.shape)
-            if self.wire == "packed":
-                staged = self._stage_packed(codes)
-            else:
-                staged = torch.from_numpy(codes)
-                if self.device.type != "cpu":
-                    staged = staged.pin_memory()
+            staged = torch.from_numpy(codes)
+            if self.device.type != "cpu":
+                staged = staged.pin_memory()
         return staged, codes.shape
-
-    def _stage_packed(self, codes: np.ndarray) -> torch.Tensor:
-        """``[B, L]`` int8 codes packed on the host into one buffer (pinned
-        where the card takes it), packed bytes then validity bytes, for one
-        upload that does not block."""
-        B, L = codes.shape
-        ps, vs = packed_strides(L)
-        staged = torch.empty(B * (ps + vs), dtype=torch.uint8,
-                             pin_memory=self.device.type != "cpu")
-        packed, valid = pack_reads_2bit(codes)
-        host = staged.numpy()
-        host[: B * ps] = packed.reshape(-1)
-        host[B * ps:] = valid.reshape(-1)
-        return staged
-
-    @staticmethod
-    def _packed_reads(wire: torch.Tensor, B: int, L: int) -> PackedReads:
-        """The read sets on a buffer that :meth:`_stage_packed` laid out."""
-        ps, vs = packed_strides(L)
-        return PackedReads(wire[: B * ps].view(B, ps), wire[B * ps:].view(B, vs), L)
 
     def _dmat(self, base_codes) -> torch.Tensor:
         if self.dmat is not None:

@@ -125,32 +125,41 @@
 // stores; the cuckoo lookup takes 0.076 ms, the sorted limbs' 0.32.
 //
 // The 2-bit wire (kpop_count_spectra_packed, kpop_count_spectra_wide_packed;
-// kpop-classify's packed uploads, DNA only): the lookup reads each base
-// from the packed and validity bytes (wide_lookup.cuh::PackedWire) where
-// the int8 entry points read a code byte; nothing else changes, so the
-// spectra are the int8 entry points' bit for bit.
+// DNA only): the lookup reads each base from the packed and validity bytes
+// (wide_lookup.cuh::PackedWire) where the int8 entry points read a code
+// byte; nothing else changes, so the spectra are the int8 entry points'
+// bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "wide_lookup.cuh"
 
+// ops/pipeline.py sizes the scratch and plans the count from these; they
+// come from there as defines (_build.py::nvcc_flags)
+#if !defined(KPOP_COUNT_RUN) || !defined(KPOP_COUNT_SLICE_BYTES) || \
+    !defined(KPOP_COUNT_NARROW_MAX) || !defined(KPOP_COUNT_BUCKET_SLICES)
+#error "build with the -DKPOP_COUNT_* layout defines of _build.py::nvcc_flags"
+#endif
+
 namespace {
 
 constexpr int LOOKUP_THREADS = 256;
-constexpr int RUN = 8;                  // windows a thread looks up, and indices it merges
+constexpr int RUN = KPOP_COUNT_RUN;     // windows a thread looks up, and indices it merges
 constexpr int THREADS = 512;
 constexpr int CHUNK = THREADS * RUN;    // indices a slice block reads at once
 constexpr int UNROLL = 4;               // chunks of indices a thread loads at once
-constexpr int SLICE_BYTES = 96 * 1024;  // counters of a slice
+constexpr int SLICE_BYTES = KPOP_COUNT_SLICE_BYTES;  // counters of a slice
 constexpr int PAD_BYTES = 16;           // the counters' shift within a 16-byte line
-constexpr int NARROW_MAX = 65535;       // windows a read set for u16 counters
+constexpr int NARROW_MAX = KPOP_COUNT_NARROW_MAX;  // windows a read set for u16 counters
 constexpr int HIST_TILE = 16 * CHUNK;   // kept indices a histogram block counts
 constexpr int SCATTER_PER = 16;         // kept indices a scatter thread places
 constexpr int SCATTER_TILE = THREADS * SCATTER_PER;
-constexpr int BUCKET_SLICES_MAX = 8192;  // the scatter's bins (pipeline.COUNT_BUCKET_SLICES)
+constexpr int BUCKET_SLICES_MAX = KPOP_COUNT_BUCKET_SLICES;  // the scatter's bins
 constexpr uint32_t MISS = 0xffffffffu;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(RUN == 8, "two 16-byte loads a thread");
+static_assert(SLICE_BYTES % 16 == 0, "a slice's counters are whole 16-byte quads");
+static_assert(NARROW_MAX <= 65535, "no u16 counter carries into its neighbour");
 static_assert(SCATTER_PER % 4 == 0, "16-byte loads");
 
 // cells a slice: u32 counters (WIDE) or u16

@@ -127,15 +127,22 @@
 
 #include "wide_lookup.cuh"
 
+// ops/pipeline.py sizes the workspace from these; they come from there as
+// defines (_build.py::nvcc_flags)
+#if !defined(KPOP_BAG_COLS) || !defined(KPOP_BAG_GROUP) || !defined(KPOP_BAG_TILE_ROWS) || \
+    !defined(KPOP_BAG_COUNTERS) || !defined(KPOP_BAG_GATHER_TILE_ENTRIES)
+#error "build with the -DKPOP_BAG_* layout defines of _build.py::nvcc_flags"
+#endif
+
 namespace {
 
-constexpr int COLS = 128;                // columns per accumulate block: 4 a lane
+constexpr int COLS = KPOP_BAG_COLS;      // columns per accumulate block: 4 a lane
 constexpr int THREADS = 1024;            // warp w: read sets [4 w, 4 w + 4)
-constexpr int GROUP = 128;               // read sets per pass (8 bits of a key)
-constexpr int R = 128;                   // rows of a vocabulary tile: 4 words of hit mask
+constexpr int GROUP = KPOP_BAG_GROUP;    // read sets per pass (8 bits of a key)
+constexpr int R = KPOP_BAG_TILE_ROWS;    // rows of a vocabulary tile: 4 words of hit mask
+constexpr int CNT = KPOP_BAG_COUNTERS;   // counters a tile
 constexpr int SUB = 8;                   // buckets of R / SUB rows a tile
-constexpr int COPIES = 4;                // counters a bucket, by read set
-constexpr int CNT = SUB * COPIES;        // counters a tile
+constexpr int COPIES = CNT / SUB;        // counters a bucket, by read set
 constexpr int WORDS = R / 32;
 constexpr int HIST_THREADS = 256;
 constexpr int HIST_PER = 8;              // windows per bucket thread
@@ -151,7 +158,8 @@ constexpr unsigned FULL = 0xffffffffu;
 static_assert(THREADS / 32 * 4 == GROUP && COLS == 4 * 32, "accumulate block shape");
 static_assert(COMPACT_THREADS >= GROUP && COMPACT_THREADS % 32 == 0, "compact block shape");
 static_assert(HDR_INTS % 4 == 0, "a header is whole 16-byte chunks");
-static_assert(CNT % 4 == 0 && R % SUB == 0 && R % 32 == 0, "a tile's counters are whole int4s");
+static_assert(CNT % 4 == 0 && CNT % SUB == 0 && R % SUB == 0, "a tile's counters are whole int4s");
+static_assert(WORDS == 4 && R % 32 == 0, "a tile's hit mask is one int4");
 
 // A twister row's element type Tw: float, or bf16 held as its 16 bits
 // (uint16_t).  A 16-byte chunk holds PER_CHUNK elements; CHUNKS chunks
@@ -651,7 +659,7 @@ __device__ __forceinline__ void add_read_set(float (&acc)[4], const int2* se, co
 // reads at k = 10: 632).  Both are launched; the one not chosen returns at
 // once.  Both add the same products in the same order, so the choice
 // never changes a bit of the result.
-constexpr int GATHER_TILE_ENTRIES = 300;
+constexpr int GATHER_TILE_ENTRIES = KPOP_BAG_GATHER_TILE_ENTRIES;
 
 __device__ __forceinline__ bool gather_regime(const int* __restrict__ entries,
                                               const int* __restrict__ n_nz) {

@@ -34,7 +34,12 @@ entry point for that lookup (``kpop_count_spectra_wide``,
 ``kpop_embedding_bag_wide``; ``csrc/wide_lookup.cuh``).  DNA read sets
 may come on the 2-bit wire (:class:`~.encode.PackedReads`, 3/8 of a byte
 a base): each of the four entry points has a ``_packed`` twin that reads
-it as it is, with the same result (:func:`classify_step_packed`).
+it as it is, with the same result.
+
+The kernels' layout constants below (``BAG_*``, ``COUNT_*``) are written
+here once: the wrappers size the kernels' scratch and plan the count from
+them, and ``_build`` compiles ``csrc/`` with each as ``-DKPOP_<NAME>``
+(:data:`.._build.LAYOUT`).
 """
 
 from __future__ import annotations
@@ -71,31 +76,34 @@ BAG_ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 BF16_ROW_ALIGN = 8
 
 #: twister columns per accumulate block of the embedding-bag kernel
-#: (csrc/embedding_bag.cu), 4 a lane
+#: (csrc/embedding_bag.cu): its COLS, 4 a lane
 BAG_COLS = 128
-#: read sets per pass of the bag kernel: 8 bits of its keys
+#: read sets per pass of the bag kernel: its GROUP, 8 bits of its keys
 BAG_GROUP = 128
 #: vocabulary rows per tile of the bag kernel: its R, a hit mask of 4
 #: words
 BAG_TILE_ROWS = 128
-#: counters of the bag kernel's key list a tile: 8 buckets of 16 rows, 4
-#: counters a bucket
+#: counters of the bag kernel's key list a tile: its CNT, 8 buckets of 16
+#: rows, 4 counters a bucket
 BAG_COUNTERS = 32
 #: the bag kernel's gather regime: a pass whose vocabulary tiles that hold
 #: keys hold at most this many (row, read set) entries on average reads
 #: each entry's row straight into registers (``bag_gather``), else through
 #: a ring in shared memory (``bag_accumulate``); the two give the same bits
+#: (its GATHER_TILE_ENTRIES)
 BAG_GATHER_TILE_ENTRIES = 300
 #: windows a thread of the count kernel (csrc/count_spectra.cu) looks up
-#: and merges; the index scratch pads each read set to a multiple of it
+#: and merges, its RUN; the index scratch pads each read set to a multiple
+#: of it
 COUNT_RUN = 8
 #: shared-memory bytes of counters a block of the count kernel holds: one
-#: slice of the vocabulary
+#: slice of the vocabulary (its SLICE_BYTES)
 COUNT_SLICE_BYTES = 96 * 1024
-#: most windows a read set for the count kernel's u16 counters
+#: most windows a read set for the count kernel's u16 counters (its
+#: NARROW_MAX)
 COUNT_NARROW_MAX = 65535
 #: most slices of the count's bucketed plan: its scatter's bins in shared
-#: memory
+#: memory (BUCKET_SLICES_MAX)
 COUNT_BUCKET_SLICES = 8192
 #: most read sets a count launch takes: its lookup's grid.y
 COUNT_MAX_ROWS = 65535
@@ -940,94 +948,3 @@ def summarize_batch(dmat: torch.Tensor, req_len: int = 2):
     mad = torch.sort(torch.abs(dmat - median[:, None]), dim=1).values[:, C // 2]
     r = min(req_len, C)
     return mean, stddev, median, mad, srt[:, :r], order[:, :r]
-
-
-def classify_step(
-    vocab_lut,
-    twister,
-    metric,
-    class_coords,
-    class_norms,
-    base_codes,
-    *,
-    k: int,
-    canonical: bool,
-    normalize: bool = True,
-    req_len: int = 2,
-):
-    """The full pipeline on raw tensors: digest of the distances plus the
-    twisted coordinates."""
-    params = ClassifierParams(
-        vocab_lut, twister, metric, class_coords, class_norms, k, canonical
-    )
-    spectra = count_spectra(params, base_codes)
-    twisted = project(params, spectra, normalize=normalize)
-    dmat = distances_to_classes(params, twisted, normalize=normalize)
-    return (*summarize_batch(dmat, req_len), twisted)
-
-
-def classify_step_packed(
-    vocab_lut,
-    twister,
-    metric,
-    class_coords,
-    class_norms,
-    packed,
-    valid,
-    *,
-    length: int,
-    k: int,
-    canonical: bool,
-    normalize: bool = True,
-    req_len: int = 2,
-):
-    """:func:`classify_step` on DNA read sets of ``length`` bases on the
-    2-bit wire (``packed``, ``valid``: :class:`~.encode.PackedReads`), the
-    counterpart of ``bench.py``'s ``step_packed``: the kernels read the
-    wire as it is, where the JAX package unpacks it first.  The same
-    tuple."""
-    params = ClassifierParams(
-        vocab_lut, twister, metric, class_coords, class_norms, k, canonical
-    )
-    reads = PackedReads(packed, valid, length)
-    twisted = project(params, count_spectra(params, reads), normalize=normalize)
-    dmat = distances_to_classes(params, twisted, normalize=normalize)
-    return (*summarize_batch(dmat, req_len), twisted)
-
-
-def _forward_step(params: ClassifierParams, base_codes, req_len: int):
-    spectra, known = count_spectra(params, base_codes, known=True)
-    twisted = project(params, spectra, known=known)
-    dmat = distances_to_classes(params, twisted)
-    return (*summarize_batch(dmat, req_len), twisted, dmat)
-
-
-class TorchClassifier:
-    """Host reads in, per-batch device classification out."""
-
-    def __init__(self, params: ClassifierParams, req_len: int = 2):
-        self.params = params
-        self.req_len = req_len
-
-    def classify_codes(self, base_codes: np.ndarray):
-        """``[B, L]`` base codes -> numpy (mean, std, median, MAD, top
-        distances, top indices, twisted, distances)."""
-        codes = torch.as_tensor(
-            np.ascontiguousarray(base_codes, dtype=np.int8),
-            device=self.params.twister.device,
-        )
-        out = _forward_step(self.params, codes, self.req_len)
-        return tuple(t.cpu().numpy() for t in out)
-
-    def classify_packed(self, packed: np.ndarray, valid: np.ndarray, length: int):
-        """:meth:`classify_codes` of DNA read sets of ``length`` bases on
-        the 2-bit wire (:func:`~.encode.pack_reads_2bit`); the same
-        tuple."""
-        dev = self.params.twister.device
-        reads = PackedReads(
-            *(torch.as_tensor(np.ascontiguousarray(a, dtype=np.uint8), device=dev)
-              for a in (packed, valid)),
-            length,
-        )
-        out = _forward_step(self.params, reads, self.req_len)
-        return tuple(t.cpu().numpy() for t in out)

@@ -7,19 +7,20 @@ trip, its numpy bytes against the native packer's, its refusal of other
 alphabets), spectra_from_codes against the JAX one, count_spectra and
 project_reads on packed read sets against the JAX functions on the
 unpacked codes (the dense LUT at k = 5; the cuckoo hash and the sorted
-limbs at k = 18; f32 and bf16 twisters; a row range), classify_step_packed
-against the composition of bench.py's step_packed, DeviceStep(wire=
-"packed") against wire="codes", the checks of the packed inputs, the row
-offsets the kernels' row groups take on the wire, and the argument counts
-of every C entry point of csrc/ against its ctypes binding.
+limbs at k = 18; f32 and bf16 twisters; a row range), the served step
+(DeviceStep) on the k = 18 vocabularies against the JAX functions, its
+refusal of any wire but bytes and codes, the checks of the packed inputs,
+the row offsets the kernels' row groups take on the wire, the argument
+counts of every C entry point of csrc/ against its ctypes binding, and
+each layout constant of the count and the bag kernels written once, in
+ops/pipeline.py, and compiled into csrc/ as a define.
 
 Tolerances: unpacked codes, counts and indices exactly; projections rtol
 1e-5 (f32 sums in another order), with an atol of 1e-5 of the largest |x|
-on a bf16 twister (tests/test_torch_bf16.py); distances and their digest
-against JAX rtol 2e-4, atol 1e-5 (the distance tile's bound,
-tests/test_pallas.py:32: the two packages' f32 expansions of distances of
-about 0.1 between rows of norm 1 differ by up to 2e-5 relative), and
-torch.equal to the port's own int8 step."""
+on a bf16 twister (tests/test_torch_bf16.py); distances against JAX rtol
+2e-4, atol 1e-5 (the distance tile's bound, tests/test_pallas.py:32: the
+two packages' f32 expansions of distances of about 0.1 between rows of
+norm 1 differ by up to 2e-5 relative)."""
 
 import functools
 import re
@@ -43,13 +44,10 @@ from kpop_tpu_torch.ops import encode as te
 from kpop_tpu_torch.ops import pipeline as tp
 
 from test_torch_large_k import batch_of, seqs_of
-from test_torch_pipeline import FIELDS, K, N_CLASSES, codes_of, trained  # noqa: F401
+from test_torch_pipeline import DIST_ATOL, DIST_RTOL, K, codes_of, served, trained  # noqa: F401
 
 RTOL = 1e-5
 BF16_ATOL = 1e-5  # of the largest |x|
-# distances of two f32 expansions (JAX's and the port's) of small
-# distances between rows of norm 1: the bound of tests/test_pallas.py:32
-DIST_RTOL, DIST_ATOL = 2e-4, 1e-5
 CSRC = Path(tp.__file__).resolve().parent.parent / "csrc"
 
 
@@ -138,7 +136,8 @@ def wide_case(lookup: str, dtype: torch.dtype):
     """DNA-ds k = 18 (two limbs): a twister of d = 6 over the k-mers of half
     of six sequences with N breaks, queries with unknown k-mers, a read of
     one repeated k-mer and one of no valid window; the cuckoo hash or, with
-    ``lookup="sorted"``, the sorted limbs in both packages."""
+    ``lookup="sorted"``, the sorted limbs in both packages.  Returns both
+    packages' parameters, the reads' codes and the reads."""
     k = 18
     rng = np.random.default_rng(18)
     space = KmerSpace("DNA-ds", k)
@@ -162,7 +161,7 @@ def wide_case(lookup: str, dtype: torch.dtype):
         jparams = jp.build_classifier_params(space, twister, coords, dtype=jdt)
         tparams = tp.build_classifier_params(space, twister, coords, device="cpu", dtype=dtype)
     assert (tparams.cuckoo is None) == (lookup == "sorted")
-    return jparams, tparams, batch_of("DNA-ds", seqs)
+    return jparams, tparams, batch_of("DNA-ds", seqs), seqs
 
 
 @pytest.fixture(params=[(lk, dt) for lk in ("lut", "cuckoo", "sorted")
@@ -170,7 +169,7 @@ def wide_case(lookup: str, dtype: torch.dtype):
                 ids=lambda p: "%s-%s" % (p[0], str(p[1]).split(".")[1]))
 def case(request, trained):  # noqa: F811
     lookup, dtype = request.param
-    return lut_case(trained, dtype) if lookup == "lut" else wide_case(lookup, dtype)
+    return lut_case(trained, dtype) if lookup == "lut" else wide_case(lookup, dtype)[:3]
 
 
 def assert_close(got: torch.Tensor, want: np.ndarray, bf16: bool):
@@ -228,79 +227,25 @@ def test_packed_row_range_equal_to_codes(case):
 # ---------------- the serving step ------------------------------------------
 
 
-@pytest.mark.parametrize("req_len", [1, 2, 3])
-def test_classify_step_packed_matches_jax(trained, req_len):  # noqa: F811
-    """classify_step_packed against the JAX functions that bench.py's
-    step_packed composes: count_spectra of unpack_2bit_batch, project,
-    distances_to_classes, summarize_batch."""
-    space, twister, coords, _ = trained
-    jparams, tparams = lut_case(trained, torch.float32)[:2]
-    codes = codes_of(trained)[:-2]  # the last two tie on every class
-    packed, valid = te.pack_reads_2bit(codes)
-    L = codes.shape[1]
-    unpacked = je.unpack_2bit_batch(jnp.asarray(packed), jnp.asarray(valid), L)
-    twisted = jp.project(jparams, jp.count_spectra(jparams, unpacked))
-    dmat = jp.distances_to_classes(jparams, twisted)
-    want = jp.summarize_batch(dmat, req_len)
-    got = tp.classify_step_packed(
-        *[getattr(tparams, n) for n in FIELDS], torch.from_numpy(packed), torch.from_numpy(valid),
-        length=L, k=K, canonical=True, req_len=req_len,
-    )
-    assert len(got) == 7
-    np.testing.assert_array_equal(got[5].numpy(), np.asarray(want[5]))
-    assert (got[5][:, 0].numpy() == np.arange(len(codes)) % N_CLASSES).all()
-    np.testing.assert_allclose(got[6].numpy(), np.asarray(twisted), rtol=RTOL, atol=1e-7)
-    for g, w, name in zip(got[:5], want[:5], ("mean", "std", "median", "mad", "top")):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=DIST_RTOL, atol=DIST_ATOL,
-                                   err_msg=name)
-    # the wire changes nothing: the int8 step's outputs, bit for bit
-    same = tp.classify_step(*[getattr(tparams, n) for n in FIELDS], torch.from_numpy(codes),
-                            k=K, canonical=True, req_len=req_len)
-    for g, w in zip(got, same):
-        assert torch.equal(g, w)
-
-
-def test_classify_packed_equals_classify_codes(trained):  # noqa: F811
-    _, tparams, codes = lut_case(trained, torch.float32)
-    clf = tp.TorchClassifier(tparams, req_len=2)
-    want = clf.classify_codes(codes)
-    got = clf.classify_packed(*te.pack_reads_2bit(codes), codes.shape[1])
-    assert len(got) == len(want) == 8
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
-
-
+@pytest.mark.parametrize("lookup", ["cuckoo", "sorted"])
 @pytest.mark.parametrize("path", ["dense", "bag"])
-@pytest.mark.parametrize("lookup", ["lut", "cuckoo"])
-def test_device_step_packed_equal_to_codes(trained, path, lookup):  # noqa: F811
-    """The serve step on the packed wire gives the codes wire's distances:
-    one staged buffer, packed then valid, unpacked on the CPU."""
-    if lookup == "lut":
-        tparams, seqs = lut_case(trained, torch.float32)[1], trained[3]
-    else:
-        tparams = wide_case(lookup, torch.float32)[1]
-        seqs = seqs_of("DNA-ds", np.random.default_rng(3), 5, 120) + ["A" * 60, "N" * 30]
-    got = DeviceStep(tparams, path, wire="packed")
-    want = DeviceStep(tparams, path)
-    a, b = got.materialize(got.dispatch(seqs)), want.materialize(want.dispatch(seqs))
-    assert a.shape == (len(seqs), tparams.class_coords.shape[0]) and np.isfinite(a).all()
-    np.testing.assert_array_equal(a, b)
-    codes = te.encode_reads_host(seqs)
-    reads = got._packed_reads(got._stage_packed(codes), *codes.shape)
-    ps, vs = te.packed_strides(reads.length)
-    assert reads.valid.data_ptr() == reads.packed.data_ptr() + len(seqs) * ps  # one buffer
-    assert reads.valid.shape == (len(seqs), vs)
+def test_device_step_wide_matches_jax(path, lookup):
+    """The served step, DeviceStep, on wide_case's k = 18 vocabularies,
+    from that case's strings: its distances against JAX's
+    distances_to_classes of project of count_spectra on the same codes."""
+    jparams, tparams, codes, seqs = wide_case(lookup, torch.float32)
+    got = served(tparams, path, seqs)
+    want = np.asarray(jp.distances_to_classes(
+        jparams, jp.project(jparams, jp.count_spectra(jparams, jnp.asarray(codes)))))
+    assert got.shape == want.shape == (len(seqs), tparams.class_coords.shape[0])
+    np.testing.assert_allclose(got, want, rtol=DIST_RTOL, atol=DIST_ATOL)
 
 
 def test_device_step_wire_checks(trained):  # noqa: F811
     _, tparams, _ = lut_case(trained, torch.float32)
-    with pytest.raises(ValueError, match="wire"):
-        DeviceStep(tparams, "dense", wire="utf8")
-    protein = tp.ClassifierParams(
-        torch.zeros(20**2 + 1, dtype=torch.int32), torch.zeros((5, 3)), torch.ones(3),
-        torch.zeros((2, 3)), torch.ones(2), k=2, canonical=False, base=20)
-    with pytest.raises(ValueError, match="DNA"):
-        DeviceStep(protein, "dense", wire="packed")
+    for wire in ("utf8", "packed"):  # the 2-bit wire is a kernel input, not a served wire
+        with pytest.raises(ValueError, match="'bytes' or 'codes'"):
+            DeviceStep(tparams, "dense", wire=wire)
 
 
 @pytest.mark.parametrize("fault", ["stride", "dtype", "short"])
@@ -354,3 +299,41 @@ def test_binding_matches_its_entry_point(name):
     assert len(_build._SIGNATURES[name]) == found[name]
     assert _build._SIGNATURES[name][-1] is _build._P
     assert set(found) - set(_build._SIGNATURES) == {"kpop_error_string"}
+
+
+# ---------------- the kernels' layout constants ------------------------------
+
+#: ops/pipeline.py's layout constants -> the csrc/ file that lays out its
+#: scratch by it, and the kernel's own name for it
+LAYOUT = {
+    "COUNT_RUN": ("count_spectra.cu", "RUN"),
+    "COUNT_SLICE_BYTES": ("count_spectra.cu", "SLICE_BYTES"),
+    "COUNT_NARROW_MAX": ("count_spectra.cu", "NARROW_MAX"),
+    "COUNT_BUCKET_SLICES": ("count_spectra.cu", "BUCKET_SLICES_MAX"),
+    "BAG_COLS": ("embedding_bag.cu", "COLS"),
+    "BAG_GROUP": ("embedding_bag.cu", "GROUP"),
+    "BAG_TILE_ROWS": ("embedding_bag.cu", "R"),
+    "BAG_COUNTERS": ("embedding_bag.cu", "CNT"),
+    "BAG_GATHER_TILE_ENTRIES": ("embedding_bag.cu", "GATHER_TILE_ENTRIES"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT))
+def test_layout_constant_written_once(name, monkeypatch):
+    """The kernels build with ops/pipeline.py's value as -DKPOP_<NAME>;
+    the kernel defines its own constant from that define alone, never from
+    a literal, and refuses to build without it; another value gives
+    another library name, so the kernels rebuild."""
+    src, const = LAYOUT[name]
+    macro = "KPOP_" + name
+    assert set(_build.LAYOUT) == set(LAYOUT)
+    assert f"-D{macro}={getattr(tp, name)}" in _build.nvcc_flags()
+    text = re.sub(r"//[^\n]*", "", (CSRC / src).read_text())
+    defined = re.findall(rf"\bconstexpr\s+\w+\s+{const}\s*=\s*([^;]*);", text)
+    assert defined == [macro], f"{src}: {const} = {defined}"
+    assert f"!defined({macro})" in text and "#error" in text
+    assert not re.search(rf"#\s*define\s+{macro}\b", text)
+    before = _build.library_path()
+    monkeypatch.setattr(tp, name, getattr(tp, name) * 2)
+    assert f"-D{macro}={getattr(tp, name)}" in _build.nvcc_flags()
+    assert _build.library_path() != before

@@ -1,9 +1,13 @@
 """kpop_tpu_torch.ops.pipeline against kpop_tpu.ops.pipeline on the CPU,
 on the same inputs made from a seed with numpy.
 
+The served step, DeviceStep, is held to the JAX classifier on the same
+reads.
+
 Tolerances: counts and lookup tables exactly; projections rtol 1e-5 (f32
 sums in another order); distances rtol 2e-4, atol 1e-5 (the bound of
-tests/test_pallas.py); digests rtol 1e-5."""
+tests/test_pallas.py), and so their digests; the digest of the same
+distances rtol 1e-5."""
 
 import io
 import os
@@ -19,11 +23,15 @@ from kpop_tpu.core.space import Distance
 from kpop_tpu.core.twister import twist_counter_db
 from kpop_tpu.ops import pipeline as jp
 from kpop_tpu.ops.encode import encode_reads_host
+from kpop_tpu_torch.cli.classify import DeviceStep
 from kpop_tpu_torch.config import device
 from kpop_tpu_torch.ops import pipeline as tp
 
 K = 5
 N_CLASSES = 6
+# distances of two f32 expansions (JAX's and the port's): the bound of
+# tests/test_pallas.py:32
+DIST_RTOL, DIST_ATOL = 2e-4, 1e-5
 FIELDS = ("vocab_lut", "twister", "metric", "class_coords", "class_norms")
 
 
@@ -74,6 +82,15 @@ def both_params(trained, distance="euclidean"):
 
 def codes_of(trained):
     return encode_reads_host(trained[3])
+
+
+def served(tparams, path: str, seqs) -> np.ndarray:
+    """The [B, C] f32 distances of ``seqs`` through the step the server and
+    the benchmark run, ``DeviceStep(tparams, path)``: on the CPU, on the
+    codes wire."""
+    step = DeviceStep(tparams, path)
+    assert step.wire == "codes"
+    return step.materialize(step.dispatch(list(seqs))).astype(np.float32)
 
 
 def test_build_classifier_params_equal_to_jax(trained):
@@ -221,31 +238,28 @@ def test_summarize_batch_upper_median():
     assert mad.item() == 1.0  # |d - 3| = [2, 1, 0, 1], sorted [0, 1, 1, 2]
 
 
-def test_classify_codes_matches_tpu_classifier(trained):
-    jparams, tparams = both_params(trained)
-    codes = codes_of(trained)[:-2]
-    want = jp.TpuClassifier(jparams, req_len=2).classify_codes(codes)
-    got = tp.TorchClassifier(tparams, req_len=2).classify_codes(codes)
-    assert len(got) == len(want) == 8
-    np.testing.assert_array_equal(got[5], want[5])  # predicted classes
-    assert (got[5][:, 0] == np.arange(len(codes)) % N_CLASSES).all()
-    np.testing.assert_allclose(got[7], want[7], rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(got[6], want[6], rtol=1e-5, atol=1e-7)
-
-
-def test_classify_step_matches_jax(trained):
+@pytest.mark.parametrize("req_len", [1, 2, 3])
+@pytest.mark.parametrize("path", ["dense", "bag"])
+def test_device_step_matches_jax(trained, path, req_len):
+    """The served step, DeviceStep, on the LUT: its distances against the
+    JAX TpuClassifier's, and their digest against JAX's classify_step."""
     import jax.numpy as jnp
 
     jparams, tparams = both_params(trained)
-    codes = codes_of(trained)[:-2]  # the last two tie on every class
-    args = [getattr(jparams, n) for n in FIELDS]
-    want = jp.classify_step(*args, jnp.asarray(codes), k=K, canonical=True)
-    got = tp.classify_step(
-        *[getattr(tparams, n) for n in FIELDS], torch.from_numpy(codes),
-        k=K, canonical=True,
-    )
-    np.testing.assert_array_equal(got[5].numpy(), np.asarray(want[5]))
-    np.testing.assert_allclose(got[6].numpy(), np.asarray(want[6]), rtol=1e-5, atol=1e-7)
+    seqs = trained[3][:-2]  # the last two tie on every class
+    codes = encode_reads_host(seqs)
+    got = served(tparams, path, seqs)
+    want = jp.TpuClassifier(jparams, req_len=req_len).classify_codes(codes)
+    assert got.shape == (len(seqs), N_CLASSES)
+    np.testing.assert_allclose(got, want[7], rtol=DIST_RTOL, atol=DIST_ATOL)
+    digest = [t.numpy() for t in tp.summarize_batch(torch.from_numpy(got), req_len)]
+    step = jp.classify_step(*[getattr(jparams, n) for n in FIELDS], jnp.asarray(codes),
+                            k=K, canonical=True, req_len=req_len)
+    np.testing.assert_array_equal(digest[5], np.asarray(step[5]))  # predicted classes
+    assert (digest[5][:, 0] == np.arange(len(seqs)) % N_CLASSES).all()
+    for g, w, name in zip(digest[:5], step[:5], ("mean", "std", "median", "mad", "top")):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=DIST_RTOL, atol=DIST_ATOL,
+                                   err_msg=name)
 
 
 def test_import_pins_full_f32_precision():

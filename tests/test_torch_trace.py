@@ -19,7 +19,7 @@ from kpop_tpu_torch.core.counter_db import CounterDB
 from kpop_tpu_torch.core.kmers import KmerSpace
 from kpop_tpu_torch.core.space import Distance, Metric
 from kpop_tpu_torch.core.twister import twist_counter_db
-from kpop_tpu_torch.ops.encode import encode_reads_host, packed_strides
+from kpop_tpu_torch.ops.encode import encode_reads_host
 from kpop_tpu_torch.ops.pipeline import build_classifier_params
 
 K = 4
@@ -99,7 +99,7 @@ def test_serving_step_ranges_nest_in_order(trained, counts):
         assert counts[name + ".calls"] == 1 and counts[name + ".ns"] > 0
 
 
-@pytest.mark.parametrize("wire", ["codes", "packed", "bytes"])
+@pytest.mark.parametrize("wire", ["codes", "bytes"])
 @pytest.mark.parametrize("path", ["auto", "bag"])
 def test_counters_count_the_batch(trained, counts, path, wire):
     _, params, seqs = trained
@@ -108,12 +108,11 @@ def test_counters_count_the_batch(trained, counts, path, wire):
         step.materialize(step.dispatch(seqs))
     codes = encode_reads_host(seqs)
     B, L = codes.shape
-    sent = {"codes": codes.nbytes, "packed": B * sum(packed_strides(L)),
+    sent = {"codes": codes.nbytes,
             # rows at the longest rounded up to 16 bytes, then int32 lengths
             "bytes": B * (-(-max(map(len, seqs)) // 16) * 16 + 4)}[wire]
-    # the count reads each row of codes at its stride and writes [B, V] f32
-    stride = sum(packed_strides(L)) if wire == "packed" else L
-    count_bytes = B * (stride + 4 * params.n_vocab) if step.path == "dense" else 0
+    # the count reads each row of codes and writes [B, V] f32
+    count_bytes = B * (L + 4 * params.n_vocab) if step.path == "dense" else 0
     assert step.path in ("dense", "bag")
     assert {k: v for k, v in counts.items() if not k.endswith((".ns", ".calls"))} == {
         "serve.batches": 1, "serve.queries": len(seqs), "serve.bases": sum(map(len, seqs)),

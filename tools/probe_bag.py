@@ -75,30 +75,33 @@ B, L, D = chip_smoke.BATCH, 30_208, 511
 CSRC = ROOT / "kpop_tpu_torch" / "csrc"
 # copies of the source: name -> edits (each old text must be one place)
 GATHER_SUMS = ("acc[bi][k] = __fadd_rn(acc[bi][k], __fmul_rn(cf, x[u][k]));")
+#: the line of the source that sets the bag kernel's regime cut, which the
+#: variants below replace
+TILE_ENTRIES = "constexpr int GATHER_TILE_ENTRIES = KPOP_BAG_GATHER_TILE_ENTRIES;"
 VARIANTS = {
-    "staged": [("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 0;")],
-    "gather": [("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 1 << 20;")],
-    "gather_ahead_1": [("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
+    "staged": [(TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 0;")],
+    "gather": [(TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 1 << 20;")],
+    "gather_ahead_1": [(TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
                        ("constexpr int GATHER_AHEAD = 2;", "constexpr int GATHER_AHEAD = 1;")],
-    "gather_ahead_4": [("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
+    "gather_ahead_4": [(TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
                        ("constexpr int GATHER_AHEAD = 2;", "constexpr int GATHER_AHEAD = 4;")],
-    "staged_slots_4": [("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 0;"),
+    "staged_slots_4": [(TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 0;"),
                        ("constexpr int SLOTS = 2;", "constexpr int SLOTS = 4;")],
     # the staged ring: the sums alone (no row copies), the copies alone
     "staged_sums_alone": [
-        ("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 0;"),
+        (TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 0;"),
         ("cp_async16(rows + slot * Row<Tw>::STRIDE + PER * q, twister + (bytes ? src : 0), bytes);",
          "if (r < 0) cp_async16(rows + slot * Row<Tw>::STRIDE + PER * q, twister + (bytes ? src : 0), bytes);")],
     "staged_copies_alone": [
-        ("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 0;"),
+        (TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 0;"),
         ("add_read_set(acc[bi], se, rows, h[4 + b], h[5 + b], lane);", "(void)b;")],
     # the gather: every entry's row read from row 0 (the sums and the walk
     # alone), and the row reads alone
     "gather_sums_alone": [
-        ("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
+        (TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
         ("const int v = tile_row0 + (a.x >> 16);", "const int v = 0 * (tile_row0 + a.x);")],
     "gather_reads_alone": [
-        ("constexpr int GATHER_TILE_ENTRIES = 300;", "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
+        (TILE_ENTRIES, "constexpr int GATHER_TILE_ENTRIES = 1 << 20;"),
         (GATHER_SUMS, "acc[0][k] += x[u][k];")],
 }
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
@@ -149,7 +152,7 @@ def build(sources: dict, out_dir: str, entry: str, header_of: dict) -> tuple[dic
         (d / "wide_lookup.cuh").write_text(header_of.get(key, header_of["package"]))
         (d / "src.cu").write_text(text)
         paths[key] = str(d / "lib.so")
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+        cmd = [_build.nvcc_path(), *_build.nvcc_flags(), "-Xptxas", "-v", "-shared",
                str(d / "src.cu"), "-o", paths[key]]
         procs[key] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
