@@ -261,7 +261,8 @@ class DeviceStep:
     def _stage_bytes(self, seqs):
         """This rank's rows of the batch as raw bytes on the ring's next
         buffer, and the codes' width: the batch's longest sequence in
-        bytes, at least k."""
+        bytes, at least k.  Counts the fill's pieces and threads
+        (:meth:`ByteRing.fill`) and a batch whose copy was split."""
         with trace.span("serve.stage"):
             n = len(seqs)
             b0, b1 = self.mesh.rows(n + (-n) % self.mesh.dp, "data")
@@ -269,7 +270,10 @@ class DeviceStep:
             width = max(staged.longest, self.params.k)
             self._pick_path(staged.rows, width)
         with trace.span("serve.encode"):
-            self._ring.fill(staged)
+            pieces, threads = self._ring.fill(staged)
+        trace.count("serve.fill_split", int(threads > 1))
+        trace.count("serve.fill_pieces", pieces)
+        trace.count("serve.fill_threads", threads)
         return staged, width
 
     def _stage_codes(self, seqs):

@@ -22,16 +22,20 @@ is; :func:`unpack_2bit_batch` is its plain version.
 On a card the serving step uploads the sequences' raw bytes instead
 (:class:`ByteRing`, one byte a base as the codes) and lints and encodes
 them there (:func:`encode_bytes`, ``csrc/encode_bytes.cu``), with the codes
-of :func:`encode_reads_host`.
+of :func:`encode_reads_host`.  A large batch's bytes are copied into the
+ring on several host threads (:meth:`ByteRing.fill`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import _build
 
@@ -309,6 +313,58 @@ class StagedBytes(NamedTuple):
         return buf[:at].view(self.rows, self.stride), buf[at:].view(torch.int32)
 
 
+#: the bytes of one piece of :meth:`ByteRing.fill`: small enough that
+#: interleaved shares of a batch's pieces keep the threads balanced, large
+#: enough that a piece's bookkeeping is nothing beside its copy.  At a batch
+#: of 16 read sets of 88.8 Mb on an H100's 8-core host, 4 MB pieces copied
+#: 16.4 GB/s, 8 and 16 MB 15.8 and 17.0, 1 MB 9.8, one thread 6.6
+#: (``tools/probe_ring_fill.py``)
+FILL_PIECE = 4 << 20
+
+
+def fill_cores() -> int:
+    """The host cores that one fill may copy on: those the process may run
+    on, divided among this host's ranks of a ``torch.distributed`` job
+    (``torchrun``'s ``LOCAL_WORLD_SIZE``; without it every rank of a joined
+    group, as the port's ranks started by address share one host)."""
+    ranks = int(os.environ.get("LOCAL_WORLD_SIZE", "0"))
+    if not ranks:
+        ranks = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return max(1, len(os.sched_getaffinity(0)) // ranks)
+
+
+def _fill_pieces(staged: StagedBytes) -> list[list[tuple[int, int, int]]]:
+    """The batch's copy cut into pieces of :data:`FILL_PIECE` bytes (the
+    last one shorter): each a list of ``(dst, src, n)`` copies, each within
+    one row.  A row longer than a piece is cut across pieces; rows shorter
+    than one share it.  A ``bytes`` source is taken at its buffer's
+    address; ``staged.sources`` keeps it alive."""
+    base, stride = staged.buffer.data_ptr(), staged.stride
+    pieces, piece, room = [], [], FILL_PIECE
+    for i, (src, n) in enumerate(staged.sources):
+        if isinstance(src, bytes):
+            src = ctypes.cast(src, ctypes.c_void_p).value
+        dst, at = base + i * stride, 0
+        while at < n:
+            take = min(n - at, room)
+            piece.append((dst + at, src + at, take))
+            at += take
+            room -= take
+            if not room:
+                pieces.append(piece)
+                piece, room = [], FILL_PIECE
+    if piece:
+        pieces.append(piece)
+    return pieces
+
+
+def _copy_share(pieces) -> None:
+    """Copy a thread's share of a batch's pieces."""
+    for piece in pieces:
+        for dst, src, n in piece:
+            ctypes.memmove(dst, src, n)
+
+
 class ByteRing:
     """Two reused host buffers (pinned where a card takes them), used in
     turn, that stage a batch's sequences as raw bytes for one upload.
@@ -319,7 +375,14 @@ class ByteRing:
     lengths; :meth:`fill` copies each row straight from the sequence's own
     buffer (:func:`_utf8`), with no encode, join or pinned copy.  A row
     starts at a multiple of its stride, the batch's longest sequence
-    rounded up to 16 bytes; nothing past a row's length is written."""
+    rounded up to 16 bytes; nothing past a row's length is written.
+
+    A batch of more than one piece of :data:`FILL_PIECE` bytes is cut into
+    its pieces and copied on up to :func:`fill_cores` threads: the calling
+    thread and the ring's own pool, started at the first such batch and
+    reused on every later one (its threads end with the ring).  A batch of
+    one piece is copied on the calling thread alone, one ``memmove`` a
+    row, with no piece list: it has nothing to split."""
 
     SLOTS = 2
 
@@ -328,6 +391,7 @@ class ByteRing:
         self._buffers = [torch.empty(0, dtype=torch.uint8) for _ in range(self.SLOTS)]
         self._uploads: list[torch.cuda.Event | None] = [None] * self.SLOTS
         self._turn = 0
+        self._pool: ThreadPoolExecutor | None = None
 
     def reserve(self, seqs, r0: int = 0, r1: int | None = None) -> StagedBytes:
         """The rows ``[r0, r1)`` of the batch ``seqs`` (rows past its end
@@ -352,12 +416,36 @@ class ByteRing:
         lengths[len(mine):] = 0
         return staged
 
-    @staticmethod
-    def fill(staged: StagedBytes) -> None:
-        """Copy each row's bytes into the staged buffer."""
-        base, stride = staged.buffer.data_ptr(), staged.stride
-        for i, (src, n) in enumerate(staged.sources):
-            ctypes.memmove(base + i * stride, src, n)
+    def fill(self, staged: StagedBytes) -> tuple[int, int]:
+        """Copy each row's bytes into the staged buffer; returns the
+        batch's pieces of :data:`FILL_PIECE` bytes and the threads that
+        copied them, the lesser of the pieces and :func:`fill_cores`.
+
+        On one thread (one piece, or one core) the calling thread copies
+        each row by one ``memmove``.  Else the batch is cut into its pieces
+        (:func:`_fill_pieces`), thread ``t`` copies pieces ``t``, ``t +
+        threads``, ... (the calling thread the first share), and the call
+        returns once every piece is copied, raising the first failure of
+        any thread."""
+        cores = fill_cores()
+        pieces = -(-sum(n for _, n in staged.sources) // FILL_PIECE)
+        threads = min(pieces, cores)
+        if threads <= 1:
+            base, stride = staged.buffer.data_ptr(), staged.stride
+            for i, (src, n) in enumerate(staged.sources):
+                ctypes.memmove(base + i * stride, src, n)
+            return pieces, threads
+        cut = _fill_pieces(staged)
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(cores - 1, thread_name_prefix="kpop-fill")
+        others = [self._pool.submit(_copy_share, cut[t::threads]) for t in range(1, threads)]
+        try:
+            _copy_share(cut[::threads])
+        finally:
+            wait(others)
+        for f in others:
+            f.result()
+        return pieces, threads
 
     def uploaded(self) -> None:
         """Record, on the current stream, the end of the upload of the

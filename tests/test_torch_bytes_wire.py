@@ -7,9 +7,13 @@ PyTorch version ``encode_bytes_ref`` on the CPU).
 On the CPU: the plain encoder against ``native.encode_batch`` and its numpy
 fallback on seeded strings (DNA and protein, str and bytes), equal on the
 common columns and -1 beyond; the ring's bytes and lengths against
-``s.encode()`` across reuse, growth and padding rows; the step's distances
-equal to the codes wire's on both routes, and on two gloo ranks (dp = 2,
-and kp = 2 through ``sharded_dmat_fn``) against one rank.
+``s.encode()`` across reuse, growth and padding rows; the ring's split fill
+(pieces of a few bytes, on a few threads) against its one-thread fill, the
+whole slot byte for byte, a thread's failure raised in the caller, and the
+step's fill counters; the step's distances equal to the codes wire's on
+both routes, and on two gloo ranks (dp = 2, and kp = 2 through
+``sharded_dmat_fn``, each rank's fill split on its share of the cores)
+against one rank.
 
 On a card (``-m card``; skipped without one): the kernel equal to the
 plain version on a batch of 64 x 601,885 bytes with dashes sprinkled in,
@@ -25,6 +29,7 @@ Also a worker script: ``python tests/test_torch_bytes_wire.py <rank>
 import io
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -212,6 +217,132 @@ def test_ring_rows_and_lengths_equal_the_encoded_strings():
     assert ptrs[3] != ptrs[1]  # the second slot grew
 
 
+#: the piece size the split fill's tests set, so that each case stays small
+PIECE = 64
+#: what a slot's row bytes hold before a fill, where nothing is written
+SENTINEL = 0xA5
+
+
+def fill_case(case: str, rng):
+    """``(seqs, r0, r1)`` of one split-fill case at :data:`PIECE` bytes."""
+    if case == "long_rows":  # rows over several pieces, with padding rows
+        seqs = random_seqs(rng, 6, 400)
+        return seqs, 1, len(seqs) + 2
+    if case == "shared_pieces":  # many rows a piece
+        return ["".join(rng.choice(list("ACGTN-"), size=int(rng.integers(0, 21))))
+                for _ in range(40)], 0, 40
+    if case == "piece_boundary":  # rows 0, 2 and 3 end on a piece's end
+        return ["A" * PIECE, "C" * 32, "G" * 32, "T" * 2 * PIECE, "ACGT" * 5], 0, 5
+    if case == "non_ascii":  # multibyte characters cut across pieces
+        return ["".join(rng.choice(["é", "Ω", "→", "A", "ß"], size=int(rng.integers(20, 90))))
+                for _ in range(7)], 0, 7
+    if case == "bytes_sources":
+        enc = [s.encode() for s in random_seqs(rng, 6, 300)]
+        return enc[:3] + [bytearray(enc[3])] + enc[4:], 0, 6
+    assert case == "one_piece"
+    return ["ACGT", "é", "", "NN-A"], 0, 4
+
+
+@pytest.mark.parametrize("case", ["long_rows", "shared_pieces", "piece_boundary", "non_ascii",
+                                  "bytes_sources", "one_piece"])
+def test_split_fill_equals_one_thread_fill(monkeypatch, case):
+    """The split fill's whole slot equals the one-thread fill's on the same
+    staged batch, byte for byte: each row's bytes, the sentinel past each
+    row's length and in the padding rows, the lengths.  Pieces of
+    ``PIECE`` bytes, each copy within one row; a batch of one piece takes
+    the calling thread alone."""
+    monkeypatch.setattr(te, "FILL_PIECE", PIECE)
+    seqs, r0, r1 = fill_case(case, np.random.default_rng(23))
+    enc = [s.encode() if isinstance(s, str) else bytes(s) for s in seqs]
+    ring = te.ByteRing(pinned=False)
+    staged = ring.reserve(seqs, r0, r1)
+    rows, lengths = staged.split()
+    total = sum(len(e) for e in enc[r0:r1])
+    pieces = -(-total // PIECE)
+    assert (pieces == 1) == (case == "one_piece")
+
+    monkeypatch.setattr(te, "fill_cores", lambda: 1)
+    rows.fill_(SENTINEL)
+    assert ring.fill(staged) == (pieces, 1)
+    one = staged.buffer.clone()
+
+    monkeypatch.setattr(te, "fill_cores", lambda: 3)
+    rows.fill_(SENTINEL)
+    started = threading.active_count()
+    assert ring.fill(staged) == (pieces, min(pieces, 3))
+    assert torch.equal(staged.buffer, one)
+    if case == "one_piece":
+        assert ring._pool is None and threading.active_count() == started
+
+    for j in range(r0, r1):
+        n = len(enc[j]) if j < len(enc) else 0
+        row = bytes(rows[j - r0].numpy())
+        assert lengths[j - r0] == n and row[:n] == (enc[j] if n else b"")
+        assert set(row[n:]) <= {SENTINEL}
+    cut = te._fill_pieces(staged)
+    sizes = [sum(n for _, _, n in piece) for piece in cut]
+    assert sum(sizes) == total and len(cut) == pieces
+    assert all(size == PIECE for size in sizes[:-1]) and 0 < sizes[-1] <= PIECE
+    base = staged.buffer.data_ptr()
+    for piece in cut:
+        for dst, _, n in piece:
+            i = (dst - base) // staged.stride
+            assert n > 0 and dst + n <= base + i * staged.stride + lengths[i]
+
+
+def test_split_fill_raises_a_thread_failure(monkeypatch):
+    """A failure in one of the pool's threads is raised in the caller,
+    once every share has returned."""
+    monkeypatch.setattr(te, "FILL_PIECE", PIECE)
+    monkeypatch.setattr(te, "fill_cores", lambda: 3)
+    caller, copy, done = threading.get_ident(), te._copy_share, []
+
+    def share(pieces):
+        if threading.get_ident() != caller:
+            raise RuntimeError("a pool thread failed")
+        copy(pieces)
+        done.append(len(pieces))
+
+    monkeypatch.setattr(te, "_copy_share", share)
+    ring = te.ByteRing(pinned=False)
+    staged = ring.reserve(["ACGT" * 100] * 4)
+    with pytest.raises(RuntimeError, match="a pool thread failed"):
+        ring.fill(staged)
+    assert done == [len(range(0, -(-1600 // PIECE), 3))]  # the caller's share, copied
+
+
+@pytest.mark.parametrize("piece", ["one", "split"])
+def test_step_counts_the_fill(trained, monkeypatch, piece):
+    """``serve.fill_split``, ``serve.fill_pieces`` and
+    ``serve.fill_threads`` a served batch on the bytes wire: a batch of
+    one piece is copied on the calling thread (no pool started); a split
+    batch takes at most its pieces and the cores in threads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, params, seqs = trained
+    total = sum(len(s.encode()) for s in seqs)
+    size = total if piece == "one" else 16
+    monkeypatch.setattr(te, "FILL_PIECE", size)
+    step = DeviceStep(params, "dense", wire="bytes")
+    trace.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(2):
+                step.materialize(step.dispatch(seqs))
+        counts = dict(trace.COUNTS)
+    finally:
+        trace.reset()
+    pieces = -(-total // size)
+    threads = min(pieces, te.fill_cores())
+    assert counts["serve.batches"] == 2
+    assert counts["serve.fill_pieces"] == 2 * pieces
+    assert counts["serve.fill_threads"] == 2 * threads
+    assert counts["serve.fill_threads"] <= min(counts["serve.fill_pieces"],
+                                               2 * len(os.sched_getaffinity(0)))
+    assert counts["serve.fill_split"] == (2 if threads > 1 else 0)
+    assert (step._ring._pool is None) == (threads == 1)
+
+
 # ---------------- the serving step -----------------------------------------
 
 from test_torch_trace import trained  # noqa: E402,F401
@@ -260,13 +391,17 @@ def trained_params(device="cpu"):
 def worker(rank: int, world: int, port: int, workdir: str) -> int:
     """One gloo rank: the step on the bytes wire, at dp = 2 (the batch's
     rows split, with a padding row) and at kp = 2 (the twister's rows
-    split), against the codes wire on the same layout and one rank."""
+    split), against the codes wire on the same layout and one rank.  The
+    rank's fill is split into pieces of ``PIECE`` bytes, on its share of
+    the host's cores."""
     from kpop_tpu_torch.parallel import distributed
     from kpop_tpu_torch.parallel.mesh import make_mesh
     from kpop_tpu_torch.parallel.serving import shard_classifier_params, sharded_dmat_fn
 
     torch.set_num_threads(1)
     distributed.initialize(f"tcp://localhost:{port}", world, rank, backend="gloo")
+    te.FILL_PIECE = PIECE
+    assert te.fill_cores() == max(1, len(os.sched_getaffinity(0)) // world)
     params, seqs = trained_params()
     one = DeviceStep(params, "dense", wire="codes")
     want = one.materialize(one.dispatch(seqs))

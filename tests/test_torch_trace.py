@@ -114,11 +114,14 @@ def test_counters_count_the_batch(trained, counts, path, wire):
     # the count reads each row of codes and writes [B, V] f32
     count_bytes = B * (L + 4 * params.n_vocab) if step.path == "dense" else 0
     assert step.path in ("dense", "bag")
+    # the bytes wire's fill: these strings make one piece, copied on the calling thread
+    filled = {"serve.fill_split": 0, "serve.fill_pieces": 1, "serve.fill_threads": 1}
     assert {k: v for k, v in counts.items() if not k.endswith((".ns", ".calls"))} == {
         "serve.batches": 1, "serve.queries": len(seqs), "serve.bases": sum(map(len, seqs)),
         "serve.upload_bytes": sent, "serve.route." + step.path: 1,
         "serve.windows": sum(len(s) - K + 1 for s in seqs), "serve.long_rows": 0,
-        "serve.count_bytes": count_bytes, "serve.count_bucketed": 0}
+        "serve.count_bytes": count_bytes, "serve.count_bucketed": 0,
+        **(filled if wire == "bytes" else {})}
     assert trace.counters()["launch.kpop_count_spectra"] == _build.LAUNCHES["kpop_count_spectra"]
 
 
