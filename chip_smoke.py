@@ -68,6 +68,14 @@ prints no result.  It imports nothing of JAX or of the JAX package
    (64 x 601,885 bytes with dashes), staged as the serving step stages
    them, torch.equal to its plain version and to the host encoder's codes,
    its time as called and alone, bound by the bytes read and written;
+3b. the bag at the benchmark's cell sars2-k12-genomes: 64 held-out
+   genomes of 29,903 bases through every canonical 12-mer of a
+   [8,390,656, 1,635] f32 twister (54.9 GB), its launches counted, in
+   the gather regime the cell takes, within the bag's tolerances of its
+   plain version, torch.equal with the staged and the gather regime each
+   forced by a build with the cut moved, its error to float64 over the hit
+   rows recorded beside the plain version's; its kernel-table row
+   (``embedding_bag_lineage_k12``);
 4. slice: the headline workload of ``bench.py`` (k=10, 512 classes x 4
    tips of a 30 kb genome, seed 0, 1,024 held-out read sets of 150 bp pairs
    at 1x coverage; vocabulary ~368k, d=511), trained on the card
@@ -205,6 +213,12 @@ ENCODE_B, ENCODE_L = 64, 601_885
 # of mtb-reads' (TB_L bases, k = 12, into TB_V rows)
 READS_V = 524_800
 TB_K, TB_B, TB_L, TB_V = 12, 2, 88_818_803, 8_390_656
+# phase 3b: the bag at the benchmark's lineage cell at k = 12
+# (sars2-k12-genomes): every canonical 12-mer a row of a [V, LINEAGE_D] f32
+# twister, LINEAGE_B held-out genomes of LINEAGE_LEN bases, in the regime
+# the cell takes
+LINEAGE_K, LINEAGE_D, LINEAGE_B, LINEAGE_LEN = 12, 1_635, 64, 29_903
+LINEAGE_REGIME = "gather"
 # phase 8: the count in the row ranges of COUNT_RANGES ranks
 COUNT_RANGES = 4
 # phase 7: phase 4's corpus counted at k = 16 (two limbs: k_hi 1, k_lo 15),
@@ -510,6 +524,135 @@ def batch_limits(dev, params, rng) -> None:
                              f"{same}, within tolerance {close}")
     del codes, got, parts, want
     torch.cuda.empty_cache()
+
+
+def canonical_lut(k: int) -> tuple[np.ndarray, int]:
+    """Every canonical DNA k-mer a vocabulary row, in code order: the
+    ``4^k + 1`` int32 LUT (``V`` where a code is no row) and ``V``."""
+    codes = np.arange(4**k, dtype=np.int64)
+    rc = np.zeros_like(codes)
+    x = codes.copy()
+    for _ in range(k):
+        rc = rc * 4 + (3 - x % 4)
+        x //= 4
+    canon = codes[codes <= rc]
+    V = len(canon)
+    lut = np.full(4**k + 1, V, dtype=np.int32)
+    lut[canon] = np.arange(V, dtype=np.int32)
+    return lut, V
+
+
+def with_regime_cut(tile_entries: int, fn):
+    """``fn()`` on the kernels built with the bag's regime cut at
+    ``tile_entries`` entries a tile (0: the staged regime always, 2^30: the
+    gather), then the kernels of the cut as it was."""
+    from kpop_tpu_torch import _build
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    cut = pl.BAG_GATHER_TILE_ENTRIES
+    pl.BAG_GATHER_TILE_ENTRIES = tile_entries
+    _build._lib = None
+    try:
+        return fn()
+    finally:
+        pl.BAG_GATHER_TILE_ENTRIES = cut
+        _build._lib = None
+
+
+def lineage_bag_row(dev) -> tuple[dict, dict]:
+    """The bag at the benchmark's cell sars2-k12-genomes: LINEAGE_B
+    held-out genomes of LINEAGE_LEN bases (one tip of each of LINEAGE_B
+    lineages of :func:`simulate_corpus`'s tree) through every canonical
+    12-mer of a ``[8,390,656, 1,635]`` f32 twister (54.9 GB).  The launch
+    count reset before the call and read after it; the regime the batch
+    takes is LINEAGE_REGIME (asserted from its entries and tiles); the
+    result within BAG_RTOL, BAG_ATOL of the plain version and torch.equal
+    in both regimes forced (:func:`with_regime_cut`).  Its error to a
+    float64 bag over the hit rows is recorded beside the plain version's,
+    not held to F64_ERR_RATIO of it: at this shape each of the kernel's
+    slices sums some 3,000 entries a read set in sequence, where the plain
+    version sums chunks of 2,048 windows as trees, and the kernel's error
+    reads about 7x the plain version's, some 1e-5 of the values (an open
+    question, PERF.md section 7).  Returns the kernel table's row (the bound: the codes read,
+    each hit row read once and the output written; a multiply and an add a
+    column for each (read set, row) entry) and the launches of the call."""
+    import torch
+
+    from kpop_tpu_torch import _build
+    from kpop_tpu_torch.ops import pipeline as pl
+
+    k, d, B = LINEAGE_K, LINEAGE_D, LINEAGE_B
+    torch.cuda.empty_cache()
+    lut, V = canonical_lut(k)
+    rng = np.random.default_rng(23)
+    by_class = simulate_corpus(rng, B, LINEAGE_LEN, tips_per_class=2)
+    held = np.stack([max(by_class[c], key=lambda m: m[0])[1] for c in range(B)])
+    codes = torch.as_tensor(held.astype(np.int8), device=dev)
+    metric = np.full(d, 1.0 / d, dtype=np.float32)
+    params = pl.ClassifierParams(
+        torch.as_tensor(lut, device=dev),
+        torch.randn((V, d), generator=torch.Generator(dev).manual_seed(23), device=dev),
+        torch.as_tensor(metric, device=dev), torch.zeros((4, d), device=dev),
+        torch.ones(4, device=dev), k=k, canonical=True)
+    what = f"[{B}, {LINEAGE_LEN}], k={k}, twister [{V}, {d}]"
+    _build.LAUNCHES["kpop_embedding_bag"] = 0
+    got = pl.project_reads(params, codes)
+    launches = {"kpop_embedding_bag": _build.LAUNCHES["kpop_embedding_bag"]}
+    groups = pl.bag_row_groups(B, LINEAGE_LEN - k + 1)
+    if launches["kpop_embedding_bag"] != len(groups):
+        raise AssertionError(f"embedding_bag at {what}: {launches} launches for groups {groups}")
+    want = pl.project_reads_ref(params, codes)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=BAG_RTOL, atol=BAG_ATOL):
+        raise AssertionError(f"embedding_bag at {what} differs from its plain version: max abs "
+                             f"{err:.3g}")
+    bag_lib, n_known, hit, entries, tiles = bag_library_call(params, codes, want)
+    regime = pl.bag_regime(entries, tiles)
+    if regime != LINEAGE_REGIME:
+        raise AssertionError(f"embedding_bag at {what}: {entries} entries over {tiles} tiles take "
+                             f"the {regime} regime, the cell's is {LINEAGE_REGIME}")
+    staged = with_regime_cut(0, lambda: pl.project_reads(params, codes))
+    staged_ms = with_regime_cut(0, lambda: time_ms(lambda: pl.project_reads(params, codes),
+                                                   reps=3))
+    gather = with_regime_cut(2**30, lambda: pl.project_reads(params, codes))
+    same = torch.equal(staged, gather) and torch.equal(got, gather)
+    if not same:
+        raise AssertionError(f"embedding_bag at {what}: the staged and gather regimes differ "
+                             f"(max abs {float((staged - gather).abs().max()):.3g})")
+    del staged, gather
+    # float64 over the hit rows: the exact counts times the widened rows
+    idx = pl.vocab_lookup(params, codes)
+    cols = torch.unique(idx[idx < V]).long()
+    counts = pl.count_spectra_ref(params, codes)[:, cols].double()
+    exact = (counts @ params.twister[cols].double()) / counts.sum(dim=1).clamp(min=1.0)[:, None]
+    err_f64 = float((got.double() - exact).abs().max())
+    plain_err_f64 = float((want.double() - exact).abs().max())
+    del idx, cols, counts, exact
+    if not np.isfinite(err_f64):
+        raise AssertionError(f"embedding_bag at {what}: error to float64 {err_f64}")
+    row = dict(
+        bound(codes.nbytes + hit * d * 4 + got.nbytes, 2.0 * entries * d / F32_FLOPS * 1e3),
+        library_ms=time_ms(bag_lib, reps=3),
+        err=err, err_f64=err_f64, plain_err_f64=plain_err_f64, regime=regime,
+        ms=time_ms(lambda: pl.project_reads(params, codes), reps=5),
+        device_ms=device_call_ms(lambda: pl.project_reads(params, codes)),
+        plain_ms=time_ms(lambda: pl.project_reads_ref(params, codes), reps=3),
+        shape=f"[{B}, {LINEAGE_LEN}] int8 codes, k={k}, twister [{V}, {d}]: sars2-k12-genomes",
+        tol=f"rtol {BAG_RTOL}, atol {BAG_ATOL}; the staged and gather regimes torch.equal",
+        source="kpop_tpu_torch/csrc/embedding_bag.cu",
+        replaces="kpop_tpu/ops/pipeline.py:200",
+        launch="kpop_embedding_bag", path="lineage_k12",
+    )
+    log("kernel embedding_bag at %s: %d known windows hit %d distinct rows (%d entries over %d "
+        "tiles: the %s regime); %.4f ms as called (device %.4f), the staged regime forced "
+        "%.4f, plain %.2f, F.embedding_bag %.4f, bound %.4f (%s); max abs err %.3g to the plain "
+        "version, %.3g to float64 (plain %.3g)"
+        % (what, n_known, hit, entries, tiles, regime, row["ms"], row["device_ms"], staged_ms,
+           row["plain_ms"], row["library_ms"], row["bound_ms"], row["bound_by"], err, err_f64,
+           plain_err_f64))
+    del params, codes, got, want, bag_lib
+    torch.cuda.empty_cache()
+    return row, launches
 
 
 def bf16_of(params):
@@ -3098,6 +3241,10 @@ def main() -> int:
         _build.BUILD_SECONDS, " ".join(_build.nvcc_flags())))
     # 3. kernels
     rows = phase_kernels(dev, B=BATCH, L=30208, V=367_987, d=511, C=N_CLASSES, big=4096)
+    # 3b. the bag at the benchmark's lineage cell at k = 12
+    t0 = time.perf_counter()
+    rows["embedding_bag_lineage_k12"], lineage_launches = lineage_bag_row(dev)
+    log("lineage bag at k = 12: %.1f s" % (time.perf_counter() - t0))
     # 4. slice
     t0 = time.perf_counter()
     sl = phase_slice(dev, N_CLASSES, GENOME_LEN, BATCH, card)
@@ -3132,7 +3279,7 @@ def main() -> int:
     launches = {"slice": sl["launches"], "train": sl["train_launches"], **rel["launches"],
                 "large_k": lk["launches"], "train_streamed": sl["stream_launches"],
                 "slice_bf16": sl["bf16_launches"], "large_k_bf16": lk["bf16_launches"],
-                "sharded": sh["launches"]}
+                "sharded": sh["launches"], "lineage_k12": lineage_launches}
     def entry_launches(r) -> dict:
         names = (r["launch"],) if isinstance(r["launch"], str) else r["launch"]
         return {n: launches[r["path"]][n] for n in names}
