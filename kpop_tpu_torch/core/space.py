@@ -17,6 +17,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from .. import native, trace
 from .matrix import IncompatibleGeometries, NamedMatrix
 
 
@@ -296,15 +297,28 @@ def summarize_distance_row(
     ``name  mean  stddev  median  MAD`` then the >= req_len nearest targets
     (whole tie-groups included), each as ``target  dist  z-score``.
     Median/MAD use the element at position n//2 of the sorted values.
+
+    The numbers come from one native call by selection
+    (:func:`..native.summary_row`) where the row qualifies, else from the
+    sorts below; both give the same bits, so the same line.  Counted once a
+    row as ``summary.native_rows`` or ``summary.numpy_rows`` while a
+    profiler records (:mod:`..trace`).
     """
-    n = len(row)
-    srt = np.sort(row)
-    mean, stddev, median, mad = mean_std_median_mad(row, srt=srt)
-    order = np.lexsort((np.arange(n), row))  # stable: by distance, then index
-    eff_len = 0
-    if n and req_len > 0:
-        kth = srt[min(req_len, n) - 1]
-        eff_len = int((row <= kth).sum())
+    digest = native.summary_row(row, req_len)
+    if digest is not None:
+        trace.count("summary.native_rows")
+        (mean, stddev, median, mad), near = digest
+    else:
+        trace.count("summary.numpy_rows")
+        n = len(row)
+        srt = np.sort(row)
+        mean, stddev, median, mad = mean_std_median_mad(row, srt=srt)
+        order = np.lexsort((np.arange(n), row))  # stable: by distance, then index
+        eff_len = 0
+        if n and req_len > 0:
+            kth = srt[min(req_len, n) - 1]
+            eff_len = int((row <= kth).sum())
+        near = order[:eff_len]
     parts = [
         row_name,
         "%.15g" % mean,
@@ -313,7 +327,7 @@ def summarize_distance_row(
         "%.15g" % mad,
     ]
     with np.errstate(divide="ignore", invalid="ignore"):
-        for idx in order[:eff_len]:
+        for idx in near:
             z = np.float64(row[idx] - mean) / np.float64(stddev)
             parts += [col_names[idx], "%.15g" % row[idx], "%.15g" % z]
     return "\t".join(parts)

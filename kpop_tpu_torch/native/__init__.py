@@ -1,7 +1,8 @@
-"""ctypes binding for the native host runtime (kpop_native.cpp).
+"""ctypes binding for the native host runtime (kpop_native.cpp, and the
+port's own summary_row.cpp).
 
 Builds the shared library on first use with g++ into the package's ignored
-``_build/`` directory, under a name keyed by a hash of the source and the
+``_build/`` directory, under a name keyed by a hash of the sources and the
 flags, so an edited source or another compiler line never loads a stale
 library; falls back to the pure-numpy paths if no compiler is available.
 """
@@ -19,6 +20,8 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "kpop_native.cpp")
+#: the port's own source beside the original's (a summary line's numbers)
+_ROW_SRC = os.path.join(_DIR, "summary_row.cpp")
 # -pthread: kpop_native.cpp spawns std::thread; on toolchains older than
 # glibc 2.34 thread construction throws at runtime without it (inside a
 # ctypes call, killing the process)
@@ -47,11 +50,12 @@ def _cpu_model() -> bytes:
 
 
 def library_path() -> str:
-    """Where the library for the current source, flags and CPU lives."""
+    """Where the library for the current sources, flags and CPU lives."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     h.update(_cpu_model())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
+    for src in (_SRC, _ROW_SRC):
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(_OUT, "libkpop_native_%s.so" % h.hexdigest()[:16])
 
 
@@ -66,7 +70,9 @@ def _build(target: str) -> bool:
         return False
     try:
         subprocess.run(
-            ["g++", *_FLAGS, "-o", tmp, _SRC], check=True, capture_output=True
+            ["g++", *_FLAGS, "-o", tmp, _SRC, _ROW_SRC],
+            check=True,
+            capture_output=True,
         )
         os.replace(tmp, target)
         return True
@@ -198,12 +204,62 @@ def get_lib():
         ]
         lib.kpop_splits_free.restype = None
         lib.kpop_splits_free.argtypes = [ctypes.c_void_p]
+        # addresses as plain integers: the call is made once a summary line
+        lib.kpop_summary_row.restype = _i64
+        lib.kpop_summary_row.argtypes = [
+            ctypes.c_void_p, _i64, _i64, _i64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
         _lib = lib
         return _lib
 
 
 def available() -> bool:
     return get_lib() is not None
+
+
+_F64 = np.dtype(np.float64)
+#: each thread's outputs and scratch for :func:`summary_row`, reused
+_row_buffers = threading.local()
+
+
+def summary_row(row, req_len: int):
+    """The numbers of one ``.KPopSummary.txt`` line by one C call
+    (``summary_row.cpp``): ``((mean, stddev, median, mad), near)``, ``near``
+    the indices of the ``>= req_len`` nearest entries, whole tie groups
+    included, in (value, index) order.  Bit for bit what
+    ``core/space.py::summarize_distance_row`` computes by sorting.
+
+    Returns None where the row must take that numpy path: no library; not a
+    C-contiguous 1-D float64 array (no copy is made to make it one); fewer
+    than 2 entries, or more than numpy's ufunc buffer (``np.getbufsize()``,
+    past which numpy sums in pieces); ``req_len <= 0``; a NaN, an infinity
+    or a -0.0 in the row."""
+    lib = _lib if _lib is not None else get_lib()
+    if (
+        lib is None
+        or type(row) is not np.ndarray
+        or row.dtype is not _F64
+        or row.ndim != 1
+        or not row.flags.c_contiguous
+    ):
+        return None
+    n = row.shape[0]
+    bufs = _row_buffers
+    if getattr(bufs, "cap", 0) < n:
+        bufs.cap = n
+        bufs.stats = np.empty(4, dtype=np.float64)
+        bufs.near = np.empty(n, dtype=np.int64)
+        bufs.scratch = np.empty(n, dtype=np.float64)
+        bufs.addrs = tuple(
+            a.ctypes.data for a in (bufs.stats, bufs.near, bufs.scratch)
+        )
+    m = lib.kpop_summary_row(
+        row.ctypes.data, n, min(int(req_len), n), np.getbufsize(), *bufs.addrs
+    )
+    if m < 0:
+        return None
+    return bufs.stats.tolist(), bufs.near[:m].tolist()
 
 
 def encode_dna(seq: bytes) -> np.ndarray:
