@@ -1,8 +1,9 @@
 """The relatedness engine of the PyTorch port: the counterpart of
 ``kpop_tpu/ops/summaries.py``.
 
-``kpop-twistdb -s`` summarizes 10^5-10^6 query rows against 10^3+ targets.
-Each batch of queries is compared with every target on the device
+``kpop-twistdb -s`` summarizes 10^5-10^6 query rows against 10^3+ targets
+through a :class:`SummaryStep`, built once per target database.  Each
+batch of queries is compared with every target on the device
 (:func:`query_distances`) and digested there (:func:`digest_batch`: mean,
 n-1 std, upper median, MAD and the top-(K + slack) nearest).  Only the
 digests are downloaded; the host orders ties by (distance, target index),
@@ -22,13 +23,12 @@ it runs :func:`digest_batch_ref`.
 
 from __future__ import annotations
 
-from collections import deque
 from typing import IO
 
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, trace
 from ..core.matrix import NamedMatrix
 from ..core.space import Distance, summarize_distance_row
 from ..utils.progress import Progress
@@ -192,35 +192,178 @@ def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
-def _to_host(*tensors: torch.Tensor):
-    """Start copying device results into pinned host memory.  Returns the
-    host tensors and an event recorded behind the copies (None on the CPU):
-    waiting on it, and not on the whole stream, lets the next batch run."""
-    if tensors[0].device.type == "cpu":
-        return tensors, None
-    hosts = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        hosts.append(h)
-    done = torch.cuda.Event()
-    done.record()
-    return hosts, done
-
-
-def _wait(handle) -> list[np.ndarray]:
-    hosts, done = handle
-    if done is not None:
-        done.synchronize()
-    return [h.numpy() for h in hosts]
-
-
 def _target_norms(distance: Distance, metric: np.ndarray, targets: np.ndarray, normalize: bool):
     """Host float64 target norms (0 -> 1), or ones without ``normalize``."""
     if not normalize:
         return np.ones(targets.shape[0])
     tn = distance.compute_norm(metric, targets)
     return np.where(tn == 0.0, 1.0, tn)
+
+
+class _Slot:
+    """One batch's reused buffers: the f32 queries on the host (pinned on a
+    card) and on the device, the digests' host buffers, the event recorded
+    behind the batch's downloads, and the batch that holds the slot until
+    it is materialized."""
+
+    __slots__ = ("host", "rows", "device", "digests", "done", "batch")
+
+    def __init__(self, batch: int, d: int, k: int, dev: torch.device):
+        pinned = dev.type != "cpu"
+        self.host = torch.empty((batch, d), dtype=torch.float32, pin_memory=pinned)
+        self.rows = self.host.numpy()
+        self.device = torch.empty((batch, d), dtype=torch.float32, device=dev)
+        self.digests = [torch.empty(shape, dtype=dt, pin_memory=pinned) for shape, dt in (
+            ((batch, 4), torch.float32), ((batch, k), torch.float32), ((batch, k), torch.int64))]
+        self.done: torch.cuda.Event | None = None
+        self.batch = None
+
+
+class SummaryStep:
+    """The relatedness engine of ``kpop-twistdb -s`` as a step built once
+    per target database: :meth:`dispatch` a block of query rows, then
+    :meth:`materialize` its summary lines.
+
+    Built once: the host float64 target norms, the targets, metric and
+    norms on the device, the digest's width (``k_cap``: the lines' length
+    plus :data:`TOPK_SLACK`), the names blob of the C formatter, and
+    :attr:`SLOTS` slots of reused buffers (:class:`_Slot`).  A batch takes
+    the next slot: its float64 rows are cast straight into the slot's
+    pinned buffer, uploaded without blocking, compared with every target
+    (:func:`query_distances`) and digested (:func:`digest_batch`) on the
+    device, and the digests' download is started with an event recorded
+    behind it.  A slot is taken again only once its batch was materialized
+    and its event has completed, so at most :attr:`SLOTS` batches are in
+    flight.  On the CPU the same code runs on host tensors.
+
+    :meth:`materialize` waits on the batch's event alone and formats its
+    lines (lib/Matrix.ml:632-690) with the C formatter where it is built:
+    whole tie groups up to the lines' length, in (distance, target index)
+    order, and the host float64 row where a tie group may reach past the
+    digest's width."""
+
+    SLOTS = 2
+
+    def __init__(
+        self,
+        distance: Distance,
+        metric: np.ndarray,
+        targets: NamedMatrix,
+        keep_at_most: int | None,
+        normalize: bool,
+        backend: str = "jax",
+        batch: int = 1024,
+    ):
+        self.route = "pallas" if backend == "pallas" else "jax"
+        self.dev = device()
+        self.distance, self.normalize, self.batch = distance, normalize, batch
+        self.metric = np.asarray(metric, dtype=np.float64)
+        self.targets = np.asarray(targets.data, dtype=np.float64)
+        N, d = self.targets.shape
+        self.n_targets = N
+        self.req_len = N if keep_at_most is None else keep_at_most
+        self.k_cap = min(N, self.req_len + TOPK_SLACK)
+        self.tn = _target_norms(distance, self.metric, self.targets, normalize)
+        self._td, self._md, self._tnd = (
+            _to_device(x, self.dev) for x in (self.targets, self.metric, self.tn))
+        self.col_names = targets.row_names
+        self._names = native._names_blob(self.col_names) if _native_formatter() else None
+        self._slots = [_Slot(batch, d, self.k_cap, self.dev) for _ in range(self.SLOTS)]
+        self._turn = 0
+
+    def dispatch(self, rows: np.ndarray, names):
+        """Start a batch: the float64 query rows ``rows [B, d]`` (B at most
+        the step's batch) and their names.  Returns the batch's handle."""
+        rows = np.asarray(rows, dtype=np.float64)
+        B = rows.shape[0]
+        if not 0 < B <= self.batch or len(names) != B:
+            raise ValueError(f"SummaryStep.dispatch: {B} rows and {len(names)} names "
+                             f"for a batch of at most {self.batch}")
+        on_card = self.dev.type != "cpu"
+        with trace.span("relate.dispatch"):
+            slot = self._slots[self._turn]
+            if slot.batch is not None:
+                raise RuntimeError(f"SummaryStep: more than {self.SLOTS} batches in flight")
+            self._turn = (self._turn + 1) % self.SLOTS
+            with trace.span("relate.stage"):
+                if slot.done is not None:
+                    slot.done.synchronize()
+                np.copyto(slot.rows[:B], rows)
+            with trace.span("relate.upload"):
+                q = slot.device[:B]
+                q.copy_(slot.host[:B], non_blocking=True)
+            with trace.span("relate.launch"):
+                dmat = query_distances(self._td, q, self._md, self._tnd, self.distance.kind,
+                                       self.distance.power, self.normalize, self.route)
+                digests = digest_batch(dmat, self.k_cap)
+            with trace.span("relate.download"):
+                for host, t in zip(slot.digests, digests):
+                    host[:B].copy_(t, non_blocking=True)
+                if on_card:
+                    slot.done = torch.cuda.Event()
+                    slot.done.record()
+            trace.count("relate.batches")
+            trace.count("relate.queries", B)
+            trace.count("relate.upload_bytes", q.nbytes)
+            slot.batch = (rows, list(names))
+            return slot, slot.batch
+
+    def materialize(self, handle) -> str:
+        """The summary lines of the batch ``handle``, one ``\\n``-ended line
+        a row, once its digests are on the host."""
+        slot, batch = handle
+        if slot.batch is not batch:
+            raise ValueError("SummaryStep.materialize: the batch was materialized already")
+        rows, names = batch
+        B = len(names)
+        with trace.span("relate.wait"):
+            if slot.done is not None:
+                slot.done.synchronize()
+            # digest_batch lists each row's k smallest in (distance, target
+            # index) order, the order of the lines
+            stats, top = (h[:B].numpy().astype(np.float64) for h in slot.digests[:2])
+            idx = slot.digests[2][:B].numpy().copy()
+            slot.batch = None
+        with trace.span("relate.format"):
+            # eff per row: whole tie groups until >= req_len (top is
+            # ascending, so the selected entries are a prefix)
+            kth_val = top[:, min(self.req_len, self.k_cap) - 1]
+            eff = (top <= kth_val[:, None]).sum(axis=1)
+            # tie groups that may extend beyond the device top-K: exact host row
+            fallback = (eff >= self.k_cap) & (self.k_cap < self.n_targets)
+            trace.count("relate.fallback_rows", int(fallback.sum()))
+            if self._names is not None:
+                return self._format_native(names, rows, stats, top, idx, eff, fallback)
+            return "".join(
+                self._fallback_line(rows[j], names[j]) if fallback[j]
+                else self._format_row(names[j], stats[j], top[j], idx[j], int(eff[j]))
+                for j in range(B))
+
+    def _format_native(self, names, rows, stats, top, idx, eff, fallback) -> str:
+        eff_n = np.where(fallback, -1, eff).astype(np.int64)
+        blob = native.format_summary(names, stats, top, idx, eff_n, *self._names).decode("utf-8")
+        if not fallback.any():
+            return blob
+        # interleave exact host lines at their row positions.  Split on '\n'
+        # ONLY (the C formatter's one-\n-per-row contract): str.splitlines
+        # also splits on \v, \f, \x85, U+2028... inside names, which would
+        # misalign rows
+        lines = iter(blob.split("\n")[:-1])
+        return "".join(self._fallback_line(rows[j], names[j]) if fallback[j]
+                       else next(lines) + "\n" for j in range(len(names)))
+
+    def _format_row(self, name: str, stats, top, idx, eff: int) -> str:
+        parts = [name] + ["%.15g" % v for v in stats]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for s in range(eff):
+                d = top[s]
+                z = (d - stats[0]) / stats[1]
+                parts += [self.col_names[int(idx[s])], "%.15g" % d, "%.15g" % z]
+        return "\t".join(parts) + "\n"
+
+    def _fallback_line(self, query: np.ndarray, name: str) -> str:
+        row = _host_row(self.distance, self.metric, self.targets, self.tn, query, self.normalize)
+        return summarize_distance_row(self.req_len, name, row, self.col_names) + "\n"
 
 
 def summarize_rowwise_device(
@@ -240,108 +383,31 @@ def summarize_rowwise_device(
     The lines have the layout, names, nearest-target sets and tie order of
     :func:`kpop_tpu.core.space.summarize_rowwise`; the numbers carry the
     device's float32 error (<= ~2e-4 relative).  Rows whose tie group
-    overflows the top-K slack fall back to the host float64 row.  One batch
-    is in flight: the upload and digest of batch i+1 overlap the download
-    and formatting of batch i.  ``backend="pallas"`` computes euclidean
-    blocks with the distance tile; other distances take the matmul route.
+    overflows the top-K slack fall back to the host float64 row.  A loop
+    over one :class:`SummaryStep` with one batch in flight: the upload and
+    digest of batch i+1 overlap the download and formatting of batch i.
+    ``backend="pallas"`` computes euclidean blocks with the distance tile;
+    other distances take the matmul route.
     """
-    route = "pallas" if backend == "pallas" else "jax"
-    dev = device()
-    targets = np.asarray(m1.data, dtype=np.float64)
-    N = targets.shape[0]
-    req_len = N if keep_at_most is None else keep_at_most
-    k_cap = min(N, req_len + TOPK_SLACK)
-    tn = _target_norms(distance, metric, targets, normalize)
-    td, md, tnd = (_to_device(x, dev) for x in (targets, metric, tn))
     queries = np.asarray(m2.data, dtype=np.float64)
-    col_names = m1.row_names
-    n_rows = 0
-    host_fallbacks = 0
+    n = queries.shape[0]
+    step = SummaryStep(distance, metric, m1, keep_at_most, normalize, backend,
+                       batch=max(1, min(batch, n)))
     prog = Progress(
-        "Matrix.summarize_rowwise", "Summarizing distances (device)",
-        queries.shape[0],
+        "Matrix.summarize_rowwise", "Summarizing distances (device)", n,
     )
-    pending: deque = deque()
-
-    def _dispatch(lo: int):
-        q = _to_device(queries[lo : lo + batch], dev)
-        dmat = query_distances(
-            td, q, md, tnd, distance.kind, distance.power, normalize, route
-        )
-        return lo, q.shape[0], _to_host(*digest_batch(dmat, k_cap))
-
-    use_native_fmt = _native_formatter()
-    if use_native_fmt:
-        col_blob, col_offs, col_lens = native._names_blob(col_names)
-
-    def _fallback_line(j_abs: int) -> str:
-        row = _host_row(distance, metric, targets, tn, queries[j_abs], normalize)
-        return (
-            summarize_distance_row(req_len, m2.row_names[j_abs], row, col_names)
-            + "\n"
-        )
-
-    def _drain_one():
-        nonlocal n_rows, host_fallbacks
-        lo, B, handle = pending.popleft()
-        prog.update(lo)
-        # digest_batch lists each row's k smallest in (distance, target
-        # index) order, the order of the lines
-        stats, top, idx = [np.asarray(x, dtype=np.float64) for x in _wait(handle)]
-        # eff_len per row: whole tie groups until >= req_len (top is
-        # ascending, so the selected entries are a prefix)
-        kth_val = top[:, min(req_len, k_cap) - 1]
-        eff = (top <= kth_val[:, None]).sum(axis=1)
-        # tie groups that may extend beyond the device top-K: exact host row
-        fallback = (eff >= k_cap) & (k_cap < N)
-        if use_native_fmt:
-            eff_n = np.where(fallback, -1, eff).astype(np.int64)
-            blob = native.format_summary(
-                m2.row_names[lo : lo + B], stats, top, idx, eff_n,
-                col_blob, col_offs, col_lens,
-            ).decode("utf-8")
-            if fallback.any():
-                # interleave exact host lines at their row positions.
-                # Split on '\n' ONLY (the C formatter's one-\n-per-row
-                # contract): str.splitlines also splits on \v, \f, \x85,
-                # U+2028... inside names, which would misalign rows
-                lines = [s + "\n" for s in blob.split("\n")[:-1]]
-                merged, li = [], 0
-                for j in range(B):
-                    if fallback[j]:
-                        merged.append(_fallback_line(lo + j))
-                    else:
-                        merged.append(lines[li])
-                        li += 1
-                blob = "".join(merged)
-            out.write(blob)
-            host_fallbacks += int(fallback.sum())
-            n_rows += B - int(fallback.sum())
-            return
-        mean, std = stats[:, 0], stats[:, 1]
-        for j in range(B):
-            if fallback[j]:
-                host_fallbacks += 1
-                out.write(_fallback_line(lo + j))
-                continue
-            parts = [m2.row_names[lo + j]]
-            parts += ["%.15g" % v for v in stats[j]]
-            with np.errstate(divide="ignore", invalid="ignore"):
-                for s in range(int(eff[j])):
-                    d = top[j, s]
-                    z = (d - mean[j]) / std[j]
-                    parts += [col_names[int(idx[j, s])], "%.15g" % d, "%.15g" % z]
-            out.write("\t".join(parts) + "\n")
-            n_rows += 1
-
-    for lo in range(0, queries.shape[0], batch):
-        pending.append(_dispatch(lo))
-        if len(pending) >= 2:
-            _drain_one()
-    while pending:
-        _drain_one()
+    pending = None
+    for lo in range(0, n, batch):
+        handle = step.dispatch(queries[lo : lo + batch], m2.row_names[lo : lo + batch])
+        if pending is not None:
+            prog.update(pending[0])
+            out.write(step.materialize(pending[1]))
+        pending = lo, handle
+    if pending is not None:
+        prog.update(pending[0])
+        out.write(step.materialize(pending[1]))
     prog.done("queries.")
-    return n_rows + host_fallbacks
+    return n
 
 
 def _host_row(distance, metric, targets, tnorms, query, normalize):
